@@ -1,0 +1,1 @@
+"""Recipe stage drivers (so far: the stage-6 conversion engine)."""
