@@ -6,15 +6,24 @@
 Phases, one line or more each; any failure exits non-zero:
   1. build    every CUDA kernel of the port from ``cyclevae_tpu_torch/csrc``
               (one nvcc per source, all started together);
-  2. kernels  each kernel against its plain PyTorch version on the card, at
-              the shapes of the conversion path (flagship H=1024, T=1120:
-              encoder B=2 out=64, decoder B=3 out=50), float32 and bf16,
-              with kernel, per-frame and plain times from CUDA events;
+  2. kernels  each kernel against its plain PyTorch version on the card,
+              float32 and bf16, with kernel and plain times from CUDA events
+              and the bound: K1 at the conversion path's shapes (H=1024,
+              T=1120: encoder B=2 out=64, decoder B=3 out=50); K2 and K3 at the
+              training step's four calls (T=80: encoder B=5 out=64, fused 2B
+              decoder B=10 out=50, cv encoder B=5 out=64, cyclic decoder B=5
+              out=50), and K3 also at T=560;
   3. main     the stage-6 conversion path of the flagship hu1024 CycleVAE
               (random weights from a seed, stats baked in): 4 requests
               through ``Codec`` + ``device_decode_pair`` per dtype, with the
               kernel launch counts read around them, then the same requests
               through the plain path to check the outputs;
+  4. train    the stage-4 train step of the same model (bsu 5, 7 segments of
+              80 frames, do_prob 0.5, ``use_pallas``): per dtype one warm-up
+              step and 3 timed steps through ``make_train_step`` with the K2
+              and K3 launch counts read around them; then one step each of
+              the kernel path and of the plain path (``use_pallas=False``) on
+              the same replayed draws, their losses compared;
 then the card's name and power limit, one JSON line of the kernels, and as
 the last line ``{"ok": true, "device": {...}}``.
 
@@ -55,6 +64,27 @@ BF16_COS = 0.999
 # requests: (source frames, target frames), 1.5-4.5 s of speech at 5 ms
 REQUESTS = [(300, 420), (512, 688), (760, 604), (900, 845)]
 WARMUP = [(350, 450), (650, 900)]   # both 560-frame bucket counts
+# training: bsu 5 utterances of 300-560 frames (the longest exactly 560: one
+# bucket of 7 segments of 80 frames, all of them valid)
+SEG_LEN = 80
+TRAIN_FLENS = [560, 300, 417, 489, 351]
+TRAIN_STEPS = 3
+# the four AR-GRU calls of a training segment: (name, B, out, conv_dim)
+TRAIN_CALLS = [("encoder", 5, 64, 486), ("decoder2B", 10, 50, 306),
+               ("cv_encoder", 5, 64, 486), ("cyc_decoder", 5, 50, 306)]
+T_BWD_LONG = 560
+#   K3's float32 gradients: sums of up to 3H products in another order and
+#   carried over T steps; held at 2e-4 of the largest value, the JAX package's
+#   gradient tolerance (tests/test_gru_ar_vjp.py)
+GRAD_SCALE_TOL = 2e-4
+#   train-step loss, kernel path vs plain path, same draws, float32: segment
+#   0 starts from the same weights, so only the order of float32 sums
+#   differs: the JAX package's ELBO parity bound, 2e-4 relative
+#   (tests/test_elbo_parity.py); later segments start from weights that
+#   Adam moved by ~lr per weight, so a gradient near 0 summed in another
+#   order can move a weight the other way: 2e-3 relative
+LOSS_F32_SEG0 = 2e-4
+LOSS_F32_ALL = 2e-3
 
 
 def log(msg: str) -> None:
@@ -102,10 +132,40 @@ def gru_ar_bound_ms(B: int, T: int, out: int, wdt: torch.dtype):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def elementwise_bound_ms(ops: float, nbytes: float, wdt: torch.dtype):
+    t_ops, t_bytes = ops / PEAK_OPS[wdt] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def gru_ar_train_bound_ms(B: int, T: int, out: int, wdt: torch.dtype):
+    """K2: operations as ``pallas_gru.py:191-197`` counts them; bytes of
+    each input read once (gates, mask, weights, biases, y0, h0) and each
+    output written once (trj, y_T, h_T, h_seq)."""
+    wb = torch.empty((), dtype=wdt).element_size()
+    ops = 2 * T * B * (3 * H * H + 3 * H * out + H * out)
+    nbytes = (B * T * (3 * H + H) * wb + (3 * H * H + 3 * H * out + out * H) * wb
+              + (3 * H + out) * 4 + (B * out + B * H) * 4
+              + B * T * out * 4 + (B * out + B * H) * 4 + B * T * H * wb)
+    return elementwise_bound_ms(ops, nbytes, wdt)
+
+
+def gru_ar_bwd_bound_ms(B: int, T: int, out: int, wdt: torch.dtype):
+    """K3: operations as ``pallas_gru.py:349-354`` counts them; bytes of
+    each input read once (d_trj, gates_x, y_prev, h_prev, mask, weights,
+    b_hh, dh_T, dy_T) and each output written once (dgx, dgh, dy_tot, dh0,
+    dy0)."""
+    wb = torch.empty((), dtype=wdt).element_size()
+    ops = 2 * T * B * (out * H + 2 * 3 * H * H + 2 * 3 * H * out)
+    nbytes = (B * T * out * 4 + B * T * (3 * H + out + 2 * H) * wb
+              + (out * H + 3 * H * H + 3 * H * out) * wb + 3 * H * 4 + (B * H + B * out) * 4
+              + 2 * B * T * 3 * H * wb + B * T * out * 4 + (B * H + B * out) * 4)
+    return elementwise_bound_ms(ops, nbytes, wdt)
+
+
 def phase_build():
     from cyclevae_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    paths = _build.build(["gru_ar"])
+    paths = _build.build(["gru_ar", "gru_ar_bwd"])
     log(f"[build] {len(paths)} kernel source(s) in {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -155,6 +215,89 @@ def phase_kernels(dev):
                 f"rel_l2={rl2:.3e} cos={cos:.6f} kernel={ms:.3f} ms "
                 f"({ms * 1e3 / T_KERNEL:.2f} us/frame) plain={plain_ms:.1f} ms "
                 f"bound={bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}")
+    return results
+
+
+def _match(got, want, wdt, scale_tol):
+    """(max abs difference, relative L2, cosine, ok) of a kernel's outputs
+    against its plain version's: float32 within ``scale_tol`` of the largest
+    value (at least 1); bf16 within the JAX package's bf16 bounds."""
+    err, worst_rl2, worst_cos, ok = 0.0, 0.0, 1.0, True
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        e = float((g - w).abs().max())
+        rl2, cos = rel_l2(g, w), cosine(g, w)
+        err, worst_rl2, worst_cos = max(err, e), max(worst_rl2, rl2), min(worst_cos, cos)
+        ok &= bool(torch.isfinite(g).all())
+        if wdt == torch.float32:
+            ok &= e <= scale_tol * max(float(w.abs().max()), 1.0)
+        else:
+            ok &= rl2 < BF16_REL_L2 and cos > BF16_COS
+    return err, worst_rl2, worst_cos, ok
+
+
+def phase_train_kernels(dev):
+    """K2 and K3 against their plain versions at the train step's shapes."""
+    from cyclevae_tpu_torch.models.layers import init_dense, init_gru_stack
+    from cyclevae_tpu_torch.ops import _build
+    from cyclevae_tpu_torch.ops.cuda_gru import (cuda_gru_ar_bwd, cuda_gru_ar_train,
+                                                 gru_ar_bwd_reference, gru_ar_train_reference,
+                                                 plan, plan_bwd)
+    from cyclevae_tpu_torch.ops.gru_scan import precompute_input_gates
+
+    results = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    runs = [(name, B, out, conv, SEG_LEN) for name, B, out, conv in TRAIN_CALLS]
+    runs.append(("decoder2B", 10, 50, 306, T_BWD_LONG))   # K3 only: past launch cost
+    for call, B, out, conv_dim, T in runs:
+        layer = init_gru_stack(gen, conv_dim + out, H, 1)[0]
+        layer["b_ih"].uniform_(-0.1, 0.1, generator=gen)
+        layer["b_hh"].uniform_(-0.1, 0.1, generator=gen)
+        proj = init_dense(gen, H, out)
+        gx = precompute_input_gates(layer, torch.randn((B, T, conv_dim), generator=gen, device=dev))
+        y0 = 0.5 * torch.randn((B, out), generator=gen, device=dev)
+        h0 = 0.1 * torch.randn((B, H), generator=gen, device=dev)
+        mask = (torch.rand((B, T, H), generator=gen, device=dev) < 0.5).float() * 2.0
+        for wdt in (torch.float32, torch.bfloat16):
+            dname = str(wdt).split('.')[-1]
+            kernels = []
+            if T == SEG_LEN:
+                kernels.append("gru_ar_train")
+            kernels.append("gru_ar_bwd")
+            # K3's inputs from the plain forward: its residuals as the
+            # backward sees them, and random output cotangents
+            trj, _, _, h_seq = gru_ar_train_reference(layer, proj, gx, y0, h0, mask, wdt)
+            y_prev = torch.cat([y0[:, None], trj[:, :-1]], dim=1).to(wdt)
+            h_prev = torch.cat([h0[:, None].to(wdt), h_seq[:, :-1]], dim=1)
+            bwd_args = (proj["w"].to(wdt), layer["w_hh"].to(wdt), layer["w_ih"][:, -out:].to(wdt),
+                        layer["b_hh"], torch.randn((B, T, out), generator=gen, device=dev), gx,
+                        y_prev, h_prev, mask, torch.randn((B, H), generator=gen, device=dev),
+                        torch.randn((B, out), generator=gen, device=dev))
+            for kname in kernels:
+                if kname == "gru_ar_train":
+                    args = (layer, proj, gx, y0, h0, mask, wdt)
+                    fn, ref, tol = cuda_gru_ar_train, gru_ar_train_reference, F32_ATOL
+                    bound_ms, bound_by = gru_ar_train_bound_ms(B, T, out, wdt)
+                    pl = plan(_build.load("gru_ar"), B, H, out, wdt, train=True)
+                else:
+                    args = bwd_args
+                    fn, ref, tol = cuda_gru_ar_bwd, gru_ar_bwd_reference, GRAD_SCALE_TOL
+                    bound_ms, bound_by = gru_ar_bwd_bound_ms(B, T, out, wdt)
+                    pl = plan_bwd(_build.load("gru_ar_bwd"), B, H, out, wdt)
+                got, want = fn(*args), ref(*args)
+                torch.cuda.synchronize()
+                err, rl2, cos, ok = _match(got, want, wdt, tol)
+                ms = cuda_ms(lambda: fn(*args), iters=10, warmup=2)
+                plain_ms = cuda_ms(lambda: ref(*args), iters=2)
+                key = f"{kname}/{call}/T{T}/{dname}"
+                results[key] = dict(kernel=kname, call=call, B=B, T=T, out=out, dtype=dname,
+                                    max_abs_err=err, rel_l2=rl2, cosine=cos, ms=ms,
+                                    us_per_step=ms * 1e3 / T, plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by, plan=pl, ok=ok)
+                log(f"[kernels] {key} B={B} H={H} out={out} plan={pl} max_abs={err:.3e} "
+                    f"rel_l2={rl2:.3e} cos={cos:.6f} kernel={ms:.3f} ms "
+                    f"({ms * 1e3 / T:.2f} us/step) plain={plain_ms:.1f} ms "
+                    f"bound={bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}")
     return results
 
 
@@ -236,6 +379,138 @@ def phase_main(dev):
     return ok, total_launches
 
 
+def train_batch(rng: np.random.Generator):
+    """The bsu-5 batch of synthetic utterances: smooth 54-d trajectories,
+    a one-to-one speaker pair, the converted excitation a shifted copy of
+    the source's (U/V, log F0 + 0.3, aperiodicities)."""
+    from cyclevae_tpu_torch.pipeline.dataset import Utterance, make_batch
+    utts = []
+    for i, T in enumerate(TRAIN_FLENS):
+        f = synth_features(rng, T)
+        cv = f[:, :4].copy()
+        cv[:, 1] += 0.3
+        code = np.zeros((T, 2), np.float32)
+        utts.append(Utterance(f"utt{i}", f"utt{i}", f, cv, np.arange(T), code + [1, 0],
+                              code + [0, 1], f, np.arange(T), True))
+    return make_batch(utts, SEG_LEN, quantum_segs=7), np.concatenate([u.feats for u in utts])
+
+
+def _draws_classes():
+    from cyclevae_tpu_torch.models.gru_vae import Draws
+
+    class Record(Draws):
+        """Draws from the generator, keeping every tensor drawn."""
+
+        def __init__(self, generator):
+            super().__init__(generator)
+            self.seq = []
+
+        def bernoulli(self, keep, shape):
+            self.seq.append(super().bernoulli(keep, shape))
+            return self.seq[-1]
+
+        def normal(self, shape):
+            self.seq.append(super().normal(shape))
+            return self.seq[-1]
+
+    class Replay(Draws):
+        """A recorded sequence of draws, in order."""
+
+        def __init__(self, seq):
+            self.seq = list(seq)
+
+        def _pop(self, shape):
+            t = self.seq.pop(0)
+            if tuple(t.shape) != tuple(shape):
+                raise RuntimeError(f"replayed draw {tuple(t.shape)} where {tuple(shape)} is drawn")
+            return t
+
+        def bernoulli(self, keep, shape):
+            return self._pop(shape)
+
+        def normal(self, shape):
+            return self._pop(shape)
+
+    return Record, Replay
+
+
+def phase_train(dev):
+    """The stage-4 train step, as ``make_train_step`` drives it."""
+    from cyclevae_tpu_torch.ops.cuda_gru import cuda_gru_ar, cuda_gru_ar_bwd, cuda_gru_ar_train
+    from cyclevae_tpu_torch.vi.train import (CycleVAEConfig, TrainState, init_cyclevae,
+                                             make_optimizer, make_train_step)
+
+    (batch, meta), real_feats = train_batch(np.random.default_rng(SEED + 2))
+    mean, scale = real_feats.mean(axis=0), real_feats.std(axis=0) + 1e-3
+    n_segs, real_frames = meta["n_segs"], int(batch["flens"].sum())
+    want = 8 * n_segs   # 2 cycles x 4 AR-GRU calls per segment
+
+    def fresh(dt, use_pallas=True):
+        cfg = CycleVAEConfig(hidden_units=H, use_pallas=use_pallas, compute_dtype=dt)
+        params = init_cyclevae(torch.Generator(device=dev).manual_seed(SEED), cfg, mean, scale,
+                               device=dev)
+        opt = make_optimizer(cfg, lr=1e-4)
+        ts = TrainState(params, opt.init(params), torch.Generator(device=dev).manual_seed(SEED + 3), 0)
+        return cfg, ts, make_train_step(cfg, opt, SEG_LEN, n_segs)
+
+    host = lambda m: {k: v.cpu().numpy() for k, v in m.items()}
+    runs = {}
+    for dt in ("float32", "bfloat16"):
+        cfg, ts, step = fresh(dt)
+        ts, _ = step(ts, batch)          # warm-up, not counted
+        runs[dt] = [ts, step]
+        log(f"[train] {dt}: flagship hl{cfg.hidden_layers} hu{cfg.hidden_units} ld{cfg.lat_dim} "
+            f"n_cyc{cfg.n_cyc} do_prob{cfg.do_prob}; bsu {len(TRAIN_FLENS)}, bucket "
+            f"{batch['feats'].shape[1]} = {n_segs} x {SEG_LEN}, {real_frames} real frames")
+
+    # ---- the main path: counts set to 0 just before, read just after ----
+    ok = True
+    cuda_gru_ar.launches = cuda_gru_ar_train.launches = cuda_gru_ar_bwd.launches = 0
+    for dt, (ts, step) in runs.items():
+        before = (cuda_gru_ar_train.launches, cuda_gru_ar_bwd.launches)
+        secs, mets = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            ts, m = step(ts, batch)
+            mets.append(host(m))         # the step ends in a host copy of its metrics
+            secs.append(time.perf_counter() - t0)
+        k2 = (cuda_gru_ar_train.launches - before[0]) / TRAIN_STEPS
+        k3 = (cuda_gru_ar_bwd.launches - before[1]) / TRAIN_STEPS
+        finite = all(np.isfinite(m["loss"]).all() for m in mets)
+        valid = all((m["seg_valid"] == 1.0).all() for m in mets)
+        ok &= finite and valid and k2 == want and k3 == want
+        log(f"[train] {dt}: {TRAIN_STEPS} steps, s/step " + ", ".join(f"{t:.4f}" for t in secs)
+            + "; real frames/s " + ", ".join(f"{real_frames / t:.0f}" for t in secs)
+            + f"; K2 {k2:g} and K3 {k3:g} launches per step (want {want}); per-segment loss "
+            + ", ".join(f"{v:.2f}" for v in mets[-1]["loss"])
+            + f"; finite {finite}, all segments valid {valid}")
+    launches = (cuda_gru_ar_train.launches, cuda_gru_ar_bwd.launches)
+    k1_in_train = cuda_gru_ar.launches
+    ok &= k1_in_train == 0
+    log(f"[train] main path: K2 {launches[0]}, K3 {launches[1]}, K1 {k1_in_train} launches")
+
+    # ---- the kernel path against the plain path, the same replayed draws ----
+    Record, Replay = _draws_classes()
+    _, ts, step = fresh("float32")
+    rec = Record(ts.rng)
+    losses = {"kernel/float32": host(step(ts, batch, rec)[1])["loss"]}
+    _, ts, step = fresh("bfloat16")
+    losses["kernel/bfloat16"] = host(step(ts, batch, Replay(rec.seq))[1])["loss"]
+    _, ts, step = fresh("float32", use_pallas=False)
+    t0 = time.perf_counter()
+    ref = host(step(ts, batch, Replay(rec.seq))[1])["loss"]
+    plain_s = time.perf_counter() - t0
+    rel = {k: np.abs(v - ref) / np.abs(ref) for k, v in losses.items()}
+    ok &= bool(rel["kernel/float32"][0] < LOSS_F32_SEG0 and rel["kernel/float32"].max() < LOSS_F32_ALL)
+    ok &= bool(rel["kernel/bfloat16"].max() < BF16_REL_L2)
+    log(f"[train] vs plain path ({plain_s:.1f} s/step), per-segment relative loss difference: "
+        f"f32 max {rel['kernel/float32'].max():.3e} (segment 0 {rel['kernel/float32'][0]:.3e} < "
+        f"{LOSS_F32_SEG0}, all < {LOSS_F32_ALL}); bf16 max {rel['kernel/bfloat16'].max():.3e} "
+        f"(< {BF16_REL_L2})")
+    log(f"[train] {'ok' if ok else 'FAIL'}")
+    return ok, launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -262,19 +537,31 @@ def main() -> int:
 
     phase_build()
     kern = phase_kernels(dev)
+    train_kern = phase_train_kernels(dev)
     main_ok, launches = phase_main(dev)
-    ok = main_ok and all(r["ok"] for r in kern.values())
+    train_ok, (k2_launches, k3_launches) = phase_train(dev)
+    ok = (main_ok and train_ok and all(r["ok"] for r in kern.values())
+          and all(r["ok"] for r in train_kern.values()))
 
-    dec = kern["decoder/float32"]
+    def entry(name, source, replaces, n, r):
+        # no PyTorch call computes an AR GRU or its reverse scan
+        # (torch.nn.GRU has no output feedback): library_ms is null
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None}
+
     print(card, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "gru_ar", "route": "cuda",
-        "source": "cyclevae_tpu_torch/csrc/gru_ar.cu",
-        "replaces": "cyclevae_tpu/ops/pallas_gru.py:365",
-        "launches": launches, "max_abs_err": dec["max_abs_err"],
-        "ms": dec["ms"], "plain_ms": dec["plain_ms"],
-        "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": None}]}), flush=True)
+    print(json.dumps({"kernels": [
+        entry("gru_ar", "cyclevae_tpu_torch/csrc/gru_ar.cu",
+              "cyclevae_tpu/ops/pallas_gru.py:365", launches, kern["decoder/float32"]),
+        entry("gru_ar_train", "cyclevae_tpu_torch/csrc/gru_ar.cu",
+              "cyclevae_tpu/ops/pallas_gru.py:109", k2_launches,
+              train_kern[f"gru_ar_train/decoder2B/T{SEG_LEN}/float32"]),
+        entry("gru_ar_bwd", "cyclevae_tpu_torch/csrc/gru_ar_bwd.cu",
+              "cyclevae_tpu/ops/pallas_gru.py:272", k3_launches,
+              train_kern[f"gru_ar_bwd/decoder2B/T{SEG_LEN}/float32"]),
+    ]}), flush=True)
     if not ok:
         print("chip_smoke: a phase failed", file=sys.stderr)
         return 1

@@ -9,11 +9,17 @@ Sub-packages
 ------------
 - ``utils``    : typed configs (a copy of the JAX package's), device choice.
 - ``models``   : GRU-VAE nets as plain functions on parameter dicts,
-                 parameter init from a ``torch.Generator``, sampling.
-- ``ops``      : the plain AR-GRU scan and the CUDA AR-GRU kernel
-                 (``csrc/gru_ar.cu``), built with ``nvcc`` at first use.
-- ``vi``       : model assembly and the reader of JAX checkpoints.
-- ``pipeline`` : the stage-6 conversion engine (``Codec``).
+                 parameter init from a ``torch.Generator``, sampling, KL
+                 terms, the training forward's draws.
+- ``ops``      : the plain AR-GRU scan and the CUDA AR-GRU kernels
+                 (``csrc/gru_ar.cu``: inference and training forward;
+                 ``csrc/gru_ar_bwd.cu``: the backward), built with ``nvcc``
+                 at first use, and the autograd Function over them.
+- ``vi``       : model assembly, the training core (cyclic ELBO, TBPTT
+                 train step, Adam), checkpoints (the port's, and JAX's read
+                 without JAX).
+- ``pipeline`` : the stage-6 conversion engine (``Codec``), batching, the
+                 train stage's helpers.
 - ``interop``  : JAX parameter pytrees <-> the port's tensors.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -1,17 +1,23 @@
-// Fused autoregressive GRU forward (inference) for NVIDIA Hopper, sm_90a.
+// Fused autoregressive GRU forward for NVIDIA Hopper, sm_90a: inference (K1)
+// and training (K2), one kernel body with a compile-time flag.
 //
-// Replaces the Pallas TPU kernel cyclevae_tpu/ops/pallas_gru.py:_kernel
-// (wrapper pallas_gru_ar).  Per frame t, for the batch rows b:
+// Replaces the Pallas TPU kernels cyclevae_tpu/ops/pallas_gru.py:_kernel
+// (wrapper pallas_gru_ar) and :_kernel_train (wrapper pallas_gru_ar_train).
+// Per frame t, for the batch rows b:
 //   gx  = gates_x[b, t] + y_{t-1} . Wy^T          (Wy = w_ih[:, conv_dim:], (3H, out))
 //   gh  = h_{t-1} . Whh^T + b_hh                  (Whh (3H, H), torch gate rows [r, z, n])
 //   r = sigmoid(gx_r + gh_r), z = sigmoid(gx_z + gh_z), n = tanh(gx_n + r * gh_n)
 //   h_t = (1 - z) * n + z * h_{t-1}
-//   y_t = h_t . Wout^T + b_out                    (fed back as the next frame's y)
-// The weights are float or bf16.  As in the TPU kernel, h, y and h_t are
-// rounded to the weight type before each product, products accumulate in
-// float, both biases stay float, the gates stream at the weight type and the
-// carried h and y stay float.  No tensor cores: B is 2-3 on the conversion
-// path, and float weights must not be rounded to TF32.
+//   o_t = h_t                                     (inference)
+//   o_t = h_t * mask[b, t]                        (training: inverted dropout on the GRU
+//                                                  output; h_seq[b, t] = h_t at W)
+//   y_t = o_t . Wout^T + b_out                    (fed back as the next frame's y)
+// The carried h stays unmasked and float in both modes.  The weights are
+// float or bf16.  As in the TPU kernels, h, y and o_t are rounded to the
+// weight type W before each product, products accumulate in float, both
+// biases stay float, the gates, mask and h_seq stream at W and the carried h
+// and y stay float.  No tensor cores: B is 2-10 on the main paths, and float
+// weights must not be rounded to TF32.
 //
 // What bounds it on this card: not bytes and not FLOPs.  One call at H=1024,
 // B=3, T=1120 moves ~35 MB and does ~22.5 GFLOP (0.34 ms at the float FMA
@@ -40,7 +46,9 @@
 //   * One warp takes a unit's three gate rows for up to 4 batch rows at once,
 //     branch-free so that the compiler batches the shared loads, and its
 //     lanes 0-3 then finish the gates and h_t of that unit with no
-//     block-wide sync between.
+//     block-wide sync between.  In training mode those lanes also read the
+//     unit's mask value with the gates and write h_seq: no extra barrier and
+//     no extra shared memory.
 // Measured on an H100 (ops/gru_ar_phases.py), the copy of the partials is
 // the largest phase: ~76 KB per block per frame, at the L2's bandwidth.
 // The grid is sized from the occupancy query so that every block is resident
@@ -55,17 +63,14 @@
 #include <algorithm>
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "gru_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBatchChunk = 4;  // batch rows one warp accumulates together
-constexpr int kRegIters = 8;    // float4s of one Whh row a lane holds in registers
+using namespace gru;
 
 struct Args {
   const void* gx;     // (B, T, 3H) weight type
@@ -76,53 +81,17 @@ struct Args {
   const float* bout;  // (out)
   const float* y0;    // (B, out)
   const float* h0;    // (B, H)
+  const void* mask;   // (B, T, H)  weight type, training only
   float* trj;         // (B, T, out)
   float* y_last;      // (B, out)
   float* h_last;      // (B, H)
+  void* hseq;         // (B, T, H)  weight type, training only
   float* hbuf;        // (2, B, Hs)     scratch: h_t rounded to W, rows padded to Hs = 4k >= H
   float* ypart;       // (2, G, BOs)    scratch, block k's partial of y at [k]
   int B, T, H, out, U;
   int Hs, BOs;        // padded row lengths (multiples of 4 floats = 16 bytes)
   int stage_rows;     // y rows (multiple of 4) summed per pass through smem
 };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// value as the TPU kernel feeds it to a product: rounded to the weight type
-template <typename W> __device__ __forceinline__ float round_w(float x);
-template <> __device__ __forceinline__ float round_w<float>(float x) { return x; }
-template <> __device__ __forceinline__ float round_w<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-// four consecutive weights as floats (16-byte float or 8-byte bf16 load)
-__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-__device__ __forceinline__ float dot4(float4 w, float4 v, float acc) {
-  return fmaf(w.w, v.w, fmaf(w.z, v.z, fmaf(w.y, v.y, fmaf(w.x, v.x, acc))));
-}
-
-// 16-byte asynchronous copy global -> shared, cached in L2 only
-__device__ __forceinline__ void cp_async16(float* smem_dst, const float* gmem_src) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src) : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 #ifdef GRU_AR_PROFILE
 __device__ unsigned long long g_prof[7];
@@ -140,16 +109,6 @@ __device__ unsigned long long g_prof[7];
   } while (0)
 #endif
 
-__host__ __device__ inline size_t up4(size_t n) { return (n + 3) / 4 * 4; }
-
-// Up to H = 1024 (and one unit per warp), each warp keeps its unit's three
-// Whh rows in registers, as float, for the whole call: the frame's dot
-// products then read only h from shared memory.  Larger or odd H reads the
-// rows from shared memory.
-__host__ __device__ inline bool whh_in_regs(int H, int U) {
-  return H % 4 == 0 && H <= 128 * kRegIters && U <= kWarps;
-}
-
 struct Smem {  // offsets in floats; every array starts on 16 bytes
   size_t h, stage, y, hn, hown, bhh, w, total_bytes;
 };
@@ -161,7 +120,7 @@ __host__ __device__ inline Smem smem_layout(int B, int H, int out, int U, int G,
   s.h = 0;                                      // B*Hs     h_{t-1}, rounded to W
   s.stage = s.h + (size_t)B * up4(H);           // G*rows   y partials, k-major
   s.y = s.stage + (size_t)G * stage_rows;       // B*out    y_{t-1}, float
-  s.hn = s.y + up4((size_t)B * out);            // B*U      own h_t, rounded to W
+  s.hn = s.y + up4((size_t)B * out);            // B*U      own o_t, rounded to W
   s.hown = s.hn + up4((size_t)B * U);           // B*U      own h_t, float (the carry)
   s.bhh = s.hown + up4((size_t)B * U);          // 3U       own rows of b_hh
   s.w = s.bhh + up4(R);                         // [Whh 3U*H,] Wy 3U*out, Wout U*out
@@ -174,37 +133,15 @@ __host__ __device__ inline Smem smem_layout(int B, int H, int out, int U, int G,
 // also writes it to trj[:, t]
 __device__ void reduce_y(const Args& a, const float* __restrict__ part, float* stage, float* y_s,
                          int G, int t, bool write_trj) {
-  const int BO = a.B * a.out;
-  for (int r0 = 0; r0 < BO; r0 += a.stage_rows) {
-    const int rows = min(a.stage_rows, BO - r0);
-    const int rows4 = (rows + 3) / 4 * 4;  // stays inside the padded BOs
-    const int per_k = rows4 / 4;
-    for (int q = threadIdx.x; q < G * per_k; q += kThreads) {
-      const int kk = q / per_k, c = q % per_k;
-      cp_async16(stage + (size_t)kk * rows4 + 4 * c, part + (size_t)kk * a.BOs + r0 + 4 * c);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    for (int r = threadIdx.x; r < rows; r += kThreads) {
-      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-      int kk = 0;
-      for (; kk + 4 <= G; kk += 4) {
-        s0 += stage[(size_t)kk * rows4 + r];
-        s1 += stage[(size_t)(kk + 1) * rows4 + r];
-        s2 += stage[(size_t)(kk + 2) * rows4 + r];
-        s3 += stage[(size_t)(kk + 3) * rows4 + r];
-      }
-      for (; kk < G; ++kk) s0 += stage[(size_t)kk * rows4 + r];
-      const int idx = r0 + r, b = idx / a.out, o = idx % a.out;
-      const float y = ((s0 + s1) + (s2 + s3)) + a.bout[o];
-      y_s[idx] = y;
-      if (write_trj) a.trj[((size_t)b * a.T + t) * a.out + o] = y;
-    }
-    __syncthreads();  // the stage is refilled by the next pass
-  }
+  sum_partials(part, stage, G, a.B * a.out, a.BOs, a.stage_rows, [&](int idx, float s) {
+    const int b = idx / a.out, o = idx % a.out;
+    const float y = s + a.bout[o];
+    y_s[idx] = y;
+    if (write_trj) a.trj[((size_t)b * a.T + t) * a.out + o] = y;
+  });
 }
 
-template <typename W>
+template <typename W, bool kTrain>
 __global__ void __launch_bounds__(kThreads) gru_ar_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
@@ -229,6 +166,8 @@ __global__ void __launch_bounds__(kThreads) gru_ar_kernel(Args a) {
   const W* wy = static_cast<const W*>(a.wy);
   const W* whh = static_cast<const W*>(a.whh);
   const W* wout = static_cast<const W*>(a.wout);
+  const W* mask = static_cast<const W*>(a.mask);
+  W* hseq = static_cast<W*>(a.hseq);
 
   // ---- weights into registers and shared memory, once per call ----
   float4 wreg[3][kRegIters];  // regs: Whh rows g*H + j0 + warp, float4 it at 128*it + 4*lane
@@ -297,12 +236,14 @@ __global__ void __launch_bounds__(kThreads) gru_ar_kernel(Args a) {
       for (int b0 = 0; b0 < B; b0 += kBatchChunk) {
         const int bl = b0 + lane;  // the batch row that lanes 0-3 finish
         const bool finisher = lane < kBatchChunk && bl < B;
-        float gxr = 0.f, gxz = 0.f, gxn = 0.f;
-        if (finisher) {  // streamed gates: in flight during the dot products
-          const W* g = gx + ((size_t)bl * T + t) * 3 * H + j;
+        const size_t bt = (size_t)bl * T + t;
+        float gxr = 0.f, gxz = 0.f, gxn = 0.f, m = 1.f;
+        if (finisher) {  // streamed gates (and mask): in flight during the dot products
+          const W* g = gx + bt * 3 * H + j;
           gxr = to_f(g[0]);
           gxz = to_f(g[H]);
           gxn = to_f(g[2 * H]);
+          if constexpr (kTrain) m = to_f(mask[bt * H + j]);
         }
         // r and z sum their h and y products together; n keeps them apart.
         // Rows past B repeat row B-1 and are dropped: branch-free, so the
@@ -378,10 +319,14 @@ __global__ void __launch_bounds__(kThreads) gru_ar_kernel(Args a) {
           const float ng = tanhf((gxn + tyn) + rg * (thn + bhh_s[2 * U + u]));
           float* own = hown_s + bl * U + u;
           const float hnew = (1.f - zg) * ng + zg * *own;
-          const float hq = round_w<W>(hnew);
           *own = hnew;
-          __stcg(a.hbuf + (size_t)nxt * B * Hs + (size_t)bl * Hs + j, hq);
-          hn_s[bl * U + u] = hq;
+          __stcg(a.hbuf + (size_t)nxt * B * Hs + (size_t)bl * Hs + j, round_w<W>(hnew));
+          if constexpr (kTrain) {
+            hseq[bt * H + j] = from_f<W>(hnew);
+            hn_s[bl * U + u] = round_w<W>(hnew * m);
+          } else {
+            hn_s[bl * U + u] = round_w<W>(hnew);
+          }
         }
         PROF_MARK(3);
       }
@@ -411,15 +356,11 @@ __global__ void __launch_bounds__(kThreads) gru_ar_kernel(Args a) {
   }
 }
 
-template <typename W>
+template <typename W, bool kTrain>
 int plan(int B, int H, int out, int* grid, int* units, int* stage_rows, int* smem) {
-  int dev = 0, sms = 0, optin = 0, coop = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  int sms = 0, optin = 0;
+  cudaError_t e = device_facts(&sms, &optin);
   if (e != cudaSuccess) return e;
-  if (!coop) return cudaErrorNotSupported;
   const size_t BOs = up4((size_t)B * out);
   // fewest units per block (most blocks) whose grid is co-resident; the
   // y stage takes what shared memory is left, up to all B*out rows
@@ -430,12 +371,10 @@ int plan(int B, int H, int out, int* grid, int* units, int* stage_rows, int* sme
     if (base + 4 * row_bytes > (size_t)optin) continue;
     const int rows = (int)std::min(BOs, (optin - base) / row_bytes / 4 * 4);
     const size_t s = smem_layout(B, H, out, U, G, rows, sizeof(W)).total_bytes;
-    e = cudaFuncSetAttribute(gru_ar_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s);
+    bool fits = false;
+    e = co_resident(gru_ar_kernel<W, kTrain>, s, sms, G, &fits);
     if (e != cudaSuccess) return e;
-    int occ = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, gru_ar_kernel<W>, kThreads, s);
-    if (e != cudaSuccess) return e;
-    if (occ * sms >= G) {
+    if (fits) {
       *grid = G;
       *units = U;
       *stage_rows = rows;
@@ -446,24 +385,25 @@ int plan(int B, int H, int out, int* grid, int* units, int* stage_rows, int* sme
   return cudaErrorInvalidConfiguration;  // B rows of h do not fit in shared memory
 }
 
-template <typename W>
+template <typename W, bool kTrain>
 int launch(const void* gx, const void* wy, const void* whh, const void* bhh, const void* wout,
-           const void* bout, const void* y0, const void* h0, void* trj, void* y_last, void* h_last,
-           void* hbuf, void* ypart, int B, int T, int H, int out, int grid, int units,
-           int stage_rows, int smem, void* stream) {
+           const void* bout, const void* y0, const void* h0, const void* mask, void* trj,
+           void* y_last, void* h_last, void* hseq, void* hbuf, void* ypart, int B, int T, int H,
+           int out, int grid, int units, int stage_rows, int smem, void* stream) {
   if (B < 1 || T < 1 || H < 1 || out < 1 || units < 1 || stage_rows < 4 || stage_rows % 4 ||
-      (long long)grid * units < H)
+      (long long)grid * units < H || (kTrain && (mask == nullptr || hseq == nullptr)))
     return cudaErrorInvalidValue;
   Args a{gx, wy, whh, static_cast<const float*>(bhh), wout, static_cast<const float*>(bout),
-         static_cast<const float*>(y0), static_cast<const float*>(h0), static_cast<float*>(trj),
-         static_cast<float*>(y_last), static_cast<float*>(h_last), static_cast<float*>(hbuf),
-         static_cast<float*>(ypart), B, T, H, out, units, (int)up4(H), (int)up4((size_t)B * out),
-         stage_rows};
-  cudaError_t e = cudaFuncSetAttribute(gru_ar_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+         static_cast<const float*>(y0), static_cast<const float*>(h0), mask,
+         static_cast<float*>(trj), static_cast<float*>(y_last), static_cast<float*>(h_last), hseq,
+         static_cast<float*>(hbuf), static_cast<float*>(ypart), B, T, H, out, units, (int)up4(H),
+         (int)up4((size_t)B * out), stage_rows};
+  cudaError_t e = cudaFuncSetAttribute(gru_ar_kernel<W, kTrain>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(gru_ar_kernel<W>), dim3(grid),
-                                  dim3(kThreads), args, (size_t)smem,
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(gru_ar_kernel<W, kTrain>),
+                                  dim3(grid), dim3(kThreads), args, (size_t)smem,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
@@ -475,10 +415,18 @@ extern "C" {
 
 // blocks, units per block, y-stage rows and dynamic shared bytes for one call
 int gru_ar_plan_f32(int B, int H, int out, int* grid, int* units, int* stage_rows, int* smem) {
-  return plan<float>(B, H, out, grid, units, stage_rows, smem);
+  return plan<float, false>(B, H, out, grid, units, stage_rows, smem);
 }
 int gru_ar_plan_bf16(int B, int H, int out, int* grid, int* units, int* stage_rows, int* smem) {
-  return plan<__nv_bfloat16>(B, H, out, grid, units, stage_rows, smem);
+  return plan<__nv_bfloat16, false>(B, H, out, grid, units, stage_rows, smem);
+}
+int gru_ar_train_plan_f32(int B, int H, int out, int* grid, int* units, int* stage_rows,
+                          int* smem) {
+  return plan<float, true>(B, H, out, grid, units, stage_rows, smem);
+}
+int gru_ar_train_plan_bf16(int B, int H, int out, int* grid, int* units, int* stage_rows,
+                           int* smem) {
+  return plan<__nv_bfloat16, true>(B, H, out, grid, units, stage_rows, smem);
 }
 
 // hbuf: (2, B, Hs) floats and ypart: (2, grid, BOs) floats, Hs and BOs being
@@ -487,15 +435,38 @@ int gru_ar_f32(const void* gx, const void* wy, const void* whh, const void* bhh,
                const void* bout, const void* y0, const void* h0, void* trj, void* y_last,
                void* h_last, void* hbuf, void* ypart, int B, int T, int H, int out, int grid,
                int units, int stage_rows, int smem, void* stream) {
-  return launch<float>(gx, wy, whh, bhh, wout, bout, y0, h0, trj, y_last, h_last, hbuf, ypart, B, T,
-                       H, out, grid, units, stage_rows, smem, stream);
+  return launch<float, false>(gx, wy, whh, bhh, wout, bout, y0, h0, nullptr, trj, y_last, h_last,
+                              nullptr, hbuf, ypart, B, T, H, out, grid, units, stage_rows, smem,
+                              stream);
 }
 int gru_ar_bf16(const void* gx, const void* wy, const void* whh, const void* bhh, const void* wout,
                 const void* bout, const void* y0, const void* h0, void* trj, void* y_last,
                 void* h_last, void* hbuf, void* ypart, int B, int T, int H, int out, int grid,
                 int units, int stage_rows, int smem, void* stream) {
-  return launch<__nv_bfloat16>(gx, wy, whh, bhh, wout, bout, y0, h0, trj, y_last, h_last, hbuf,
-                               ypart, B, T, H, out, grid, units, stage_rows, smem, stream);
+  return launch<__nv_bfloat16, false>(gx, wy, whh, bhh, wout, bout, y0, h0, nullptr, trj, y_last,
+                                      h_last, nullptr, hbuf, ypart, B, T, H, out, grid, units,
+                                      stage_rows, smem, stream);
+}
+
+// training forward: mask (B, T, H) in, h_seq (B, T, H) out, both at the
+// weight type; the rest as gru_ar_*
+int gru_ar_train_f32(const void* gx, const void* wy, const void* whh, const void* bhh,
+                     const void* wout, const void* bout, const void* y0, const void* h0,
+                     const void* mask, void* trj, void* y_last, void* h_last, void* hseq,
+                     void* hbuf, void* ypart, int B, int T, int H, int out, int grid, int units,
+                     int stage_rows, int smem, void* stream) {
+  return launch<float, true>(gx, wy, whh, bhh, wout, bout, y0, h0, mask, trj, y_last, h_last,
+                             hseq, hbuf, ypart, B, T, H, out, grid, units, stage_rows, smem,
+                             stream);
+}
+int gru_ar_train_bf16(const void* gx, const void* wy, const void* whh, const void* bhh,
+                      const void* wout, const void* bout, const void* y0, const void* h0,
+                      const void* mask, void* trj, void* y_last, void* h_last, void* hseq,
+                      void* hbuf, void* ypart, int B, int T, int H, int out, int grid, int units,
+                      int stage_rows, int smem, void* stream) {
+  return launch<__nv_bfloat16, true>(gx, wy, whh, bhh, wout, bout, y0, h0, mask, trj, y_last,
+                                     h_last, hseq, hbuf, ypart, B, T, H, out, grid, units,
+                                     stage_rows, smem, stream);
 }
 
 #ifdef GRU_AR_PROFILE

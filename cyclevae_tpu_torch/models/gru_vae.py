@@ -8,8 +8,11 @@ embedding is one window matmul; the GRU input is concat(conv_out[t], y_prev)
 with y_prev the model's own previous normalized output; the encoder's
 log-variance lanes are clamped at ln 1e-6 (Laplace: at -7.2543...).
 
-Only the inference path is ported so far: dropout, input noise and the
-differentiable training path raise ``NotImplementedError``.
+The training forward follows the JAX package too: input noise, inverted
+dropout on the conv output and on the GRU output (so the AR feedback is
+dropped too), and, with ``use_pallas``, the fused kernels with their
+hand-derived gradient (``ops.gru_ar_vjp.gru_ar_fused``).  Random numbers
+come from a ``Draws`` (a ``torch.Generator``) in the JAX package's order.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from .layers import (
     window_gather,
 )
 from ..ops.cuda_gru import cuda_gru_ar
+from ..ops.gru_ar_vjp import gru_ar_fused
 from ..ops.gru_scan import gru_ar_scan, precompute_input_gates
 from ..utils.tree import tree_map
 
@@ -103,6 +107,36 @@ def init_hidden(cfg: GRURNNConfig, batch: int, device=None) -> torch.Tensor:
     return torch.zeros((cfg.hidden_layers, batch, cfg.hidden_units), device=device)
 
 
+class Draws:
+    """The random numbers of the training forward, drawn from one
+    ``torch.Generator`` on its device.  Callers draw in the JAX package's
+    order (per ``gru_rnn_apply``: input noise, conv dropout mask, GRU-output
+    dropout mask; per cycle of ``vi.train.cyclic_forward``: encoder, z_src,
+    z_trg, the 2B decoder, cv encoder, z_cv, cyclic decoder), so a test can
+    replay one recorded sequence into both packages by overriding these
+    three methods."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def bernoulli(self, keep: float, shape) -> torch.Tensor:
+        """Boolean draws, true with probability ``keep``."""
+        g = self.generator
+        return torch.rand(shape, generator=g, device=g.device) < keep
+
+    def normal(self, shape) -> torch.Tensor:
+        g = self.generator
+        return torch.randn(shape, generator=g, device=g.device)
+
+    def eps(self, shape, laplace: bool) -> torch.Tensor:
+        """A posterior sampler's noise: standard normal, or (``laplace``)
+        uniform on [-0.4999, 0.5)."""
+        if not laplace:
+            return self.normal(shape)
+        g = self.generator
+        return torch.rand(shape, generator=g, device=g.device) * 0.9999 - 0.4999
+
+
 def gru_rnn_apply(
     params: Dict,
     cfg: GRURNNConfig,
@@ -123,17 +157,27 @@ def gru_rnn_apply(
     res_endim: Optional[int] = None,
     noise: float = 0.0,
     differentiable: bool = False,
+    draws: Optional[Draws] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Inference forward over a (B, T, in_dim) segment.
+    """Forward over a (B, T, in_dim) segment.
 
     Returns (trj_out (B, T, out_dim), y_last (B, out_dim), h_last (L, B, H)).
     ``y_last`` is in the NORMALIZED domain (pre-scale_out): the value to feed
     back as ``y_in`` for the next segment.
 
-    ``use_pallas`` (the JAX package's name for its fused kernel) routes a
-    single-layer, non-residual model through ``ops.cuda_gru.cuda_gru_ar``:
-    the CUDA kernel for CUDA tensors, its plain version for CPU tensors.
-    Everything else runs ``ops.gru_scan.gru_ar_scan``.
+    ``use_pallas`` (the JAX package's name for its fused kernels) routes a
+    single-layer, non-residual model through the fused AR-GRU: with
+    ``do``, ``differentiable`` or a gradient to take (grad mode on and a
+    parameter or input that requires grad), ``ops.gru_ar_vjp.gru_ar_fused``
+    (K2 forward, K3 backward; an all-ones mask without dropout), else
+    ``ops.cuda_gru.cuda_gru_ar`` (K1).  Kernels for CUDA tensors, their plain
+    versions for CPU tensors.  Everything else runs
+    ``ops.gru_scan.gru_ar_scan``, under autograd.
+
+    Training (reference gru_vae.py:348-399): ``noise`` adds N(0, noise^2) to
+    the normalized input; ``do`` with ``cfg.do_prob > 0`` multiplies the
+    conv output and then the GRU output by inverted-dropout masks (keep =
+    1 - do_prob).  Both draw from ``draws``, which they then require.
 
     ``compute_dtype="bfloat16"`` follows the JAX package's dtype flow: the
     normalized input and the params are rounded to bf16, the conv taps
@@ -144,15 +188,16 @@ def gru_rnn_apply(
     ``exp`` output heads (the AR feedback stays pre-head), ``relu_vae``
     (variance lanes relu'd and clamped at 1e-6).
     """
-    if do or noise > 0.0 or differentiable:
-        raise NotImplementedError(
-            "dropout, input noise and the differentiable path are training "
-            "features, not ported yet")
     f32 = torch.float32
     B, T, _ = x.shape
+    dropout = do and cfg.do_prob > 0.0
+    if (noise > 0.0 or dropout) and draws is None:
+        raise ValueError("input noise and dropout draw from `draws`: pass one")
     if cfg.scale_in:
         s = params["scale_in"]
         x = (x - s["mean"]) / s["scale"]
+    if noise > 0.0:
+        x = x + noise * draws.normal(x.shape).to(x.dtype)
 
     cdt = _DTYPES[cfg.compute_dtype]
     rounded = lambda t: tree_map(lambda a: a.to(cdt).to(f32), t)
@@ -162,6 +207,12 @@ def gru_rnn_apply(
     w_eff, b_eff = dilconv_effective(conv_p, cfg.kernel_size)
     conv_seq = (window_gather(x.to(cdt).to(f32), cfg.rec_field) @ w_eff.to(f32)
                 + b_eff.to(f32))  # (B, T, conv_dim)
+
+    out_mask = None
+    if dropout:
+        keep = 1.0 - cfg.do_prob
+        conv_seq = conv_seq * (draws.bernoulli(keep, conv_seq.shape).to(f32) / keep)
+        out_mask = draws.bernoulli(keep, (B, T, cfg.hidden_units)).to(f32) / keep
 
     if h_in is None:
         h_in = init_hidden(cfg, B, device=x.device)
@@ -176,13 +227,24 @@ def gru_rnn_apply(
     gru_p = rounded(params["gru"])
     out_p = rounded(params["out"])
     if use_pallas and cfg.hidden_layers == 1 and res_seq is None:
-        gx = precompute_input_gates(gru_p[0], conv_seq)
-        trj, y_last, h_last1 = cuda_gru_ar(gru_p[0], out_p, gx, y_in, h_in[0],
-                                           weight_dtype=cdt)
+        g0 = gru_p[0]
+        gx = precompute_input_gates(g0, conv_seq)
+        grad_needed = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (gx, out_p["w"], out_p["b"], g0["w_hh"], y_in, h_in))
+        if do or differentiable or grad_needed:
+            if out_mask is None:
+                out_mask = torch.ones((B, T, cfg.hidden_units), device=x.device)
+            conv_dim = conv_seq.shape[-1]
+            trj, y_last, h_last1 = gru_ar_fused(
+                g0["w_ih"][:, conv_dim:], g0["w_hh"], g0["b_hh"], out_p["w"],
+                out_p["b"], gx, y_in, h_in[0], out_mask, weight_dtype=cdt)
+        else:
+            trj, y_last, h_last1 = cuda_gru_ar(g0, out_p, gx, y_in, h_in[0],
+                                               weight_dtype=cdt)
         h_last = h_last1[None]
     else:
         trj, y_last, h_last = gru_ar_scan(gru_p, out_p, conv_seq, y_in, h_in,
-                                          None, res_seq)
+                                          out_mask, res_seq)
 
     if cfg.scale_out:
         s = params["scale_out"]
@@ -249,3 +311,52 @@ def sampling_vae_laplace_batch(param: torch.Tensor, lat_dim: Optional[int] = Non
     e = _noise(param, mu.shape, generator, eps, lambda shape, g: torch.rand(
         shape, generator=g, dtype=param.dtype, device=param.device) * 0.9999 - 0.4999)
     return mu - torch.exp(log_scale) * torch.sign(e) * torch.log1p(-2.0 * torch.abs(e))
+
+
+# ---------------------------------------------------------------------------
+# KL terms (reference gru_vae.py:116-144)
+# ---------------------------------------------------------------------------
+
+def _frame_mean(per_frame: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    if mask is None:
+        return torch.mean(per_frame, dim=-1)
+    denom = torch.clamp(torch.sum(mask, dim=-1), min=1.0)
+    return torch.sum(per_frame * mask, dim=-1) / denom
+
+
+def loss_vae(param: torch.Tensor, lat_dim: Optional[int] = None,
+             mask: Optional[torch.Tensor] = None,
+             relu_vae: bool = False) -> torch.Tensor:
+    """KL(q(z|x) || N(0, I)) = mean_T 0.5 * sum_D (exp(lv) + mu^2 - lv - 1).
+
+    param: (..., T, 2D); mean over the frame axis, over the frames where
+    ``mask`` (..., T) is set.  ``relu_vae``: the aux lanes hold the variance
+    itself, 0.5 * sum(v + mu^2 - log v - 1).
+    """
+    if lat_dim is None:
+        lat_dim = param.shape[-1] // 2
+    mu = param[..., :lat_dim]
+    lv = param[..., lat_dim:]
+    if relu_vae:
+        per_frame = 0.5 * torch.sum(lv + mu ** 2 - torch.log(lv) - 1.0, dim=-1)
+    else:
+        per_frame = 0.5 * torch.sum(torch.exp(lv) + mu ** 2 - lv - 1.0, dim=-1)
+    return _frame_mean(per_frame, mask)
+
+
+def loss_vae_laplace(param: torch.Tensor, lat_dim: Optional[int] = None,
+                     mask: Optional[torch.Tensor] = None,
+                     relu_vae: bool = False) -> torch.Tensor:
+    """KL(Laplace(mu, b) || Laplace(0, 1)) per reference gru_vae.py:130-144.
+    ``relu_vae``: the aux lanes hold the scale b itself."""
+    if lat_dim is None:
+        lat_dim = param.shape[-1] // 2
+    mu = param[..., :lat_dim]
+    aux = param[..., lat_dim:]
+    mu_abs = torch.abs(mu)
+    if relu_vae:
+        scale, log_b = aux, torch.log(aux)
+    else:
+        scale, log_b = torch.exp(aux), aux
+    per_frame = torch.sum(-log_b + scale * torch.exp(-mu_abs / scale) + mu_abs - 1.0, dim=-1)
+    return _frame_mean(per_frame, mask)

@@ -1,5 +1,14 @@
-from .cuda_gru import cuda_gru_ar, gru_ar_reference
+from .cuda_gru import (
+    cuda_gru_ar,
+    cuda_gru_ar_bwd,
+    cuda_gru_ar_train,
+    gru_ar_bwd_reference,
+    gru_ar_reference,
+    gru_ar_train_reference,
+)
+from .gru_ar_vjp import gru_ar_fused
 from .gru_scan import gru_ar_scan, precompute_input_gates
 
-__all__ = ["cuda_gru_ar", "gru_ar_reference", "gru_ar_scan",
-           "precompute_input_gates"]
+__all__ = ["cuda_gru_ar", "cuda_gru_ar_bwd", "cuda_gru_ar_train",
+           "gru_ar_bwd_reference", "gru_ar_reference", "gru_ar_train_reference",
+           "gru_ar_fused", "gru_ar_scan", "precompute_input_gates"]

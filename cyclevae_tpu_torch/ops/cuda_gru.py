@@ -1,25 +1,35 @@
-"""Fused autoregressive GRU forward (inference): CUDA kernel + plain version.
+"""Fused autoregressive GRU, forward and backward: CUDA kernels + plain versions.
 
-PyTorch counterpart of ``cyclevae_tpu/ops/pallas_gru.py:pallas_gru_ar``, with
-the same contract: ``(gru_layer, out_proj, gates_x (B,T,3H), y0 (B,out),
-h0 (B,H), weight_dtype) -> (trj (B,T,out), y_T, h_T)``, all float32.
+PyTorch counterparts of ``cyclevae_tpu/ops/pallas_gru.py``, with the same
+contracts:
 
-``cuda_gru_ar`` runs the whole time loop in ONE launch of the hand-written
-kernel ``csrc/gru_ar.cu`` (design notes there) for CUDA tensors, and the plain
-version ``gru_ar_reference`` for CPU tensors.  A CUDA tensor never falls back:
-the kernel launches or the call raises.  ``cuda_gru_ar.launches`` counts the
-kernel launches (``launch`` adds one after each launch that succeeded).
+* ``cuda_gru_ar`` (K1, ``pallas_gru_ar``): ``(gru_layer, out_proj, gates_x
+  (B,T,3H), y0 (B,out), h0 (B,H), weight_dtype) -> (trj (B,T,out), y_T,
+  h_T)``, all float32;
+* ``cuda_gru_ar_train`` (K2, ``pallas_gru_ar_train``): K1 plus an
+  inverted-dropout ``out_mask`` (B,T,H) on the GRU output before the output
+  projection, and ``h_seq`` (B,T,H) at the weight dtype, the backward's
+  residual;
+* ``cuda_gru_ar_bwd`` (K3, ``pallas_gru_ar_bwd``): the reverse-time
+  cotangent scan, recomputing each step's gates from the streamed residuals.
 
-Numerics follow the TPU kernel: ``h``, ``y`` and the new ``h`` are rounded to
-the weight dtype before each product, products accumulate in float32, both
-biases stay float32, the gates stream at the weight dtype, and the carried
-state stays float32.
+Each runs in ONE launch of a hand-written kernel (``csrc/gru_ar.cu`` for K1
+and K2, ``csrc/gru_ar_bwd.cu`` for K3; design notes there) for CUDA tensors,
+and its plain version (``gru_ar_reference``, ``gru_ar_train_reference``,
+``gru_ar_bwd_reference``) for CPU tensors.  A CUDA tensor never falls back:
+the kernel launches or the call raises.  Each wrapper's ``launches`` counts
+its kernel's launches (added to after each launch that succeeded).
+
+Numerics follow the TPU kernels: every operand of a product is rounded to
+the weight dtype where the TPU kernel casts it, products accumulate in
+float32, biases stay float32, the streams (gates, mask, residuals, gate
+cotangents) ride at the weight dtype, and the carried states stay float32.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -41,23 +51,23 @@ def _weights(gru_layer: Dict, out_proj: Dict, weight_dtype: torch.dtype):
             out_proj["b"].to(_F32))
 
 
-def gru_ar_reference(gru_layer: Dict, out_proj: Dict, gates_x: torch.Tensor,
-                     y0: torch.Tensor, h0: torch.Tensor,
-                     weight_dtype: torch.dtype = _F32
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel, frame by frame.  Rounding an
-    operand to ``weight_dtype`` and multiplying in float32 gives the kernel's
-    products exactly (bf16 x bf16 is exact in float32)."""
+def _q(a: torch.Tensor, weight_dtype: torch.dtype) -> torch.Tensor:
+    """An operand as the kernels feed it to a product: rounded to the weight
+    dtype, as float32.  Multiplying two such values in float32 gives the
+    kernels' products exactly (bf16 x bf16 is exact in float32)."""
+    return a.to(weight_dtype).to(_F32)
+
+
+def _forward_reference(gru_layer, out_proj, gates_x, y0, h0, out_mask, weight_dtype):
     hidden = gru_layer["w_hh"].shape[1]
     wy, whh, bhh, wout, bout = _weights(gru_layer, out_proj, weight_dtype)
     wy, whh, wout = wy.to(_F32).T, whh.to(_F32).T, wout.to(_F32).T
-
-    def q(a):  # an operand as the kernel feeds it to a product
-        return a.to(weight_dtype).to(_F32)
+    q = lambda a: _q(a, weight_dtype)
 
     gx_all = q(gates_x)
+    mask = None if out_mask is None else q(out_mask)
     h, y = h0.to(_F32), y0.to(_F32)
-    trj = []
+    trj, h_seq = [], []
     for t in range(gates_x.shape[1]):
         gx = gx_all[:, t] + q(y) @ wy
         gh = q(h) @ whh + bhh
@@ -65,9 +75,75 @@ def gru_ar_reference(gru_layer: Dict, out_proj: Dict, gates_x: torch.Tensor,
         z = torch.sigmoid(gx[:, hidden:2 * hidden] + gh[:, hidden:2 * hidden])
         n = torch.tanh(gx[:, 2 * hidden:] + r * gh[:, 2 * hidden:])
         h = (1.0 - z) * n + z * h
-        y = q(h) @ wout + bout
+        y = q(h if mask is None else h * mask[:, t]) @ wout + bout
         trj.append(y)
-    return torch.stack(trj, dim=1), y, h
+        h_seq.append(h.to(weight_dtype))
+    return torch.stack(trj, dim=1), y, h, torch.stack(h_seq, dim=1)
+
+
+def gru_ar_reference(gru_layer: Dict, out_proj: Dict, gates_x: torch.Tensor,
+                     y0: torch.Tensor, h0: torch.Tensor,
+                     weight_dtype: torch.dtype = _F32
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K1, frame by frame; rounds where the kernel
+    does (``_q``)."""
+    return _forward_reference(gru_layer, out_proj, gates_x, y0, h0, None,
+                              weight_dtype)[:3]
+
+
+def gru_ar_train_reference(gru_layer: Dict, out_proj: Dict, gates_x: torch.Tensor,
+                           y0: torch.Tensor, h0: torch.Tensor, out_mask: torch.Tensor,
+                           weight_dtype: torch.dtype = _F32
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2 (``pallas_gru.py:_kernel_train``): the mask
+    streams at the weight dtype, ``o = h' * mask`` rounds to it before Wout,
+    ``h_seq`` is stored at it; the carried ``h`` stays unmasked float32."""
+    return _forward_reference(gru_layer, out_proj, gates_x, y0, h0, out_mask,
+                              weight_dtype)
+
+
+def gru_ar_bwd_reference(wout: torch.Tensor, whh: torch.Tensor, wy: torch.Tensor,
+                         bhh: torch.Tensor, d_trj: torch.Tensor, gates_x: torch.Tensor,
+                         y_prev: torch.Tensor, h_prev: torch.Tensor, out_mask: torch.Tensor,
+                         d_hT: torch.Tensor, d_yT: torch.Tensor
+                         ) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of K3 (``pallas_gru.py:_kernel_bwd``), step by
+    step in reverse time: recompute the gates from the residuals, then the
+    cotangent algebra.  The weight dtype is ``whh.dtype``; returns (dgx, dgh
+    (B,T,3H) at it, dy_tot (B,T,out), dh0 (B,H), dy0 (B,out) float32)."""
+    wdt = whh.dtype
+    hidden = whh.shape[1]
+    q = lambda a: _q(a, wdt)
+    wy_f, whh_f, wout_f = q(wy), q(whh), q(wout)
+    bhh_f = bhh.to(_F32)
+    gx_all, yp, hp, mask = q(gates_x), q(y_prev), q(h_prev), q(out_mask)
+    dh, dy = d_hT.to(_F32), d_yT.to(_F32)
+    dgx_seq, dgh_seq, dy_seq = [], [], []
+    for t in reversed(range(gates_x.shape[1])):
+        gx = gx_all[:, t] + yp[:, t] @ wy_f.T
+        gh = hp[:, t] @ whh_f.T + bhh_f
+        r = torch.sigmoid(gx[:, :hidden] + gh[:, :hidden])
+        z = torch.sigmoid(gx[:, hidden:2 * hidden] + gh[:, hidden:2 * hidden])
+        ghn = gh[:, 2 * hidden:]
+        n = torch.tanh(gx[:, 2 * hidden:] + r * ghn)
+        dy_tot = d_trj[:, t].to(_F32) + dy
+        dh_tot = dh + (q(dy_tot) @ wout_f) * mask[:, t]
+        dz = dh_tot * (hp[:, t] - n)
+        dn = dh_tot * (1.0 - z)
+        dgn = dn * (1.0 - n * n)
+        dr = dgn * ghn
+        dghn = dgn * r
+        dgr = dr * r * (1.0 - r)
+        dgz = dz * z * (1.0 - z)
+        dgx_t = torch.cat([dgr, dgz, dgn], dim=-1)
+        dgh_t = torch.cat([dgr, dgz, dghn], dim=-1)
+        dh = dh_tot * z + q(dgh_t) @ whh_f
+        dy = q(dgx_t) @ wy_f
+        dgx_seq.append(dgx_t.to(wdt))
+        dgh_seq.append(dgh_t.to(wdt))
+        dy_seq.append(dy_tot)
+    rev = lambda seq: torch.stack(seq[::-1], dim=1)
+    return rev(dgx_seq), rev(dgh_seq), rev(dy_seq), dh, dy
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -78,25 +154,48 @@ def _up4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
-def plan(lib: ctypes.CDLL, batch: int, hidden: int, out_dim: int,
-         weight_dtype: torch.dtype) -> Tuple[int, int, int, int]:
-    """(blocks, hidden units per block, y rows summed per pass, dynamic
-    shared bytes) of one launch on the current CUDA device; raises when the
-    shapes cannot run there."""
-    vals = [ctypes.c_int() for _ in range(4)]
-    fn = getattr(lib, f"gru_ar_plan_{_WEIGHT_DTYPES[weight_dtype]}")
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 4
+def _up8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def _stream(dev: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _plan(lib: ctypes.CDLL, entry: str, n_out: int, batch: int, hidden: int,
+          out_dim: int, weight_dtype: torch.dtype) -> Tuple[int, ...]:
+    vals = [ctypes.c_int() for _ in range(n_out)]
+    fn = getattr(lib, f"{entry}_{_WEIGHT_DTYPES[weight_dtype]}")
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * n_out
     fn.restype = ctypes.c_int
     err = fn(batch, hidden, out_dim, *(ctypes.byref(v) for v in vals))
-    _build.check(lib, err, f"gru_ar plan for B={batch} H={hidden} out={out_dim}")
+    _build.check(lib, err, f"{entry} for B={batch} H={hidden} out={out_dim}")
     return tuple(v.value for v in vals)
+
+
+def plan(lib: ctypes.CDLL, batch: int, hidden: int, out_dim: int,
+         weight_dtype: torch.dtype, train: bool = False) -> Tuple[int, int, int, int]:
+    """(blocks, hidden units per block, y rows summed per pass, dynamic
+    shared bytes) of one K1 (or, ``train``, K2) launch on the current CUDA
+    device; raises when the shapes cannot run there."""
+    entry = "gru_ar_train_plan" if train else "gru_ar_plan"
+    return _plan(lib, entry, 4, batch, hidden, out_dim, weight_dtype)
+
+
+def plan_bwd(lib: ctypes.CDLL, batch: int, hidden: int, out_dim: int,
+             weight_dtype: torch.dtype) -> Tuple[int, int, int, int, int]:
+    """(blocks, hidden units per block, dgh columns per copy, dy values summed
+    per pass, dynamic shared bytes) of one K3 launch; raises when the shapes
+    cannot run on the current CUDA device."""
+    return _plan(lib, "gru_ar_bwd_plan", 5, batch, hidden, out_dim, weight_dtype)
 
 
 def cuda_gru_ar(gru_layer: Dict, out_proj: Dict, gates_x: torch.Tensor,
                 y0: torch.Tensor, h0: torch.Tensor,
                 weight_dtype: torch.dtype = _F32
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Fused AR-GRU over a segment. Returns (trj (B,T,out), y_T, h_T), float32.
+    """Fused AR-GRU over a segment (K1). Returns (trj (B,T,out), y_T, h_T),
+    float32.
 
     ``weight_dtype=torch.bfloat16`` halves the weight and gate bytes at
     ~1e-2 relative output tolerance.
@@ -111,17 +210,41 @@ def cuda_gru_ar(gru_layer: Dict, out_proj: Dict, gates_x: torch.Tensor,
 cuda_gru_ar.launches = 0
 
 
-def launch(lib: ctypes.CDLL, gru_layer: Dict, out_proj: Dict,
-           gates_x: torch.Tensor, y0: torch.Tensor, h0: torch.Tensor,
-           weight_dtype: torch.dtype
-           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Check the inputs, allocate outputs and scratch, and launch the kernel
-    of ``lib`` (a build of ``csrc/gru_ar.cu``) on the current stream."""
+def cuda_gru_ar_train(gru_layer: Dict, out_proj: Dict, gates_x: torch.Tensor,
+                      y0: torch.Tensor, h0: torch.Tensor, out_mask: torch.Tensor,
+                      weight_dtype: torch.dtype = _F32
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused AR-GRU over a segment for the training path (K2). Returns
+    (trj (B,T,out), y_T, h_T float32, h_seq (B,T,H) at ``weight_dtype``)."""
+    if gates_x.device.type == "cpu":
+        return gru_ar_train_reference(gru_layer, out_proj, gates_x, y0, h0,
+                                      out_mask, weight_dtype)
+    return launch(_build.load("gru_ar"), gru_layer, out_proj, gates_x, y0, h0,
+                  weight_dtype, out_mask)
+
+
+cuda_gru_ar_train.launches = 0
+
+
+def _check_common(what: str, dev: torch.device, weight_dtype: torch.dtype, tensors) -> None:
     if weight_dtype not in _WEIGHT_DTYPES:
         raise ValueError(f"weight_dtype must be float32 or bfloat16, got {weight_dtype}")
-    dev = gates_x.device
     if dev.type != "cuda":
-        raise ValueError(f"the gru_ar kernel runs on CUDA tensors, got {dev}")
+        raise ValueError(f"the {what} kernel runs on CUDA tensors, got {dev}")
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"the {what} kernel needs all tensors on one device")
+
+
+def launch(lib: ctypes.CDLL, gru_layer: Dict, out_proj: Dict,
+           gates_x: torch.Tensor, y0: torch.Tensor, h0: torch.Tensor,
+           weight_dtype: torch.dtype, out_mask: Optional[torch.Tensor] = None):
+    """Check the inputs, allocate outputs and scratch, and launch the kernel
+    of ``lib`` (a build of ``csrc/gru_ar.cu``) on the current stream: K1, or
+    K2 when ``out_mask`` is given (which also returns ``h_seq``)."""
+    dev = gates_x.device
+    train = out_mask is not None
+    tensors = [gates_x, y0, h0, *gru_layer.values(), *out_proj.values()]
+    _check_common("gru_ar", dev, weight_dtype, tensors + ([out_mask] if train else []))
     B, T, threeH = gates_x.shape
     hidden = gru_layer["w_hh"].shape[1]
     out_dim = out_proj["w"].shape[0]
@@ -130,9 +253,9 @@ def launch(lib: ctypes.CDLL, gru_layer: Dict, out_proj: Dict,
     if tuple(y0.shape) != (B, out_dim) or tuple(h0.shape) != (B, hidden):
         raise ValueError(f"y0 {tuple(y0.shape)} / h0 {tuple(h0.shape)} do not "
                          f"fit B={B}, out={out_dim}, H={hidden}")
-    tensors = [gates_x, y0, h0, *gru_layer.values(), *out_proj.values()]
-    if any(t.device != dev for t in tensors):
-        raise ValueError("the gru_ar kernel needs all tensors on one device")
+    if train and tuple(out_mask.shape) != (B, T, hidden):
+        raise ValueError(f"out_mask {tuple(out_mask.shape)} is not (B, T, H) = "
+                         f"{(B, T, hidden)}")
 
     with torch.cuda.device(dev):
         wy, whh, bhh, wout, bout = (
@@ -140,22 +263,100 @@ def launch(lib: ctypes.CDLL, gru_layer: Dict, out_proj: Dict,
         gx = gates_x.to(weight_dtype).contiguous()
         y0c = y0.to(_F32).contiguous()
         h0c = h0.to(_F32).contiguous()
-        grid, units, stage_rows, smem = plan(lib, B, hidden, out_dim, weight_dtype)
+        grid, units, stage_rows, smem = plan(lib, B, hidden, out_dim, weight_dtype, train)
         trj = torch.empty((B, T, out_dim), dtype=_F32, device=dev)
         y_last = torch.empty((B, out_dim), dtype=_F32, device=dev)
         h_last = torch.empty((B, hidden), dtype=_F32, device=dev)
         # scratch rows padded to 16 bytes for the kernel's cp.async copies
         hbuf = torch.empty((2, B, _up4(hidden)), dtype=_F32, device=dev)
         ypart = torch.empty((2, grid, _up4(B * out_dim)), dtype=_F32, device=dev)
+        ptrs = [gx, wy, whh, bhh, wout, bout, y0c, h0c]
+        if train:
+            mask = out_mask.to(weight_dtype).contiguous()
+            h_seq = torch.empty((B, T, hidden), dtype=weight_dtype, device=dev)
+            ptrs += [mask, trj, y_last, h_last, h_seq]
+        else:
+            ptrs += [trj, y_last, h_last]
+        ptrs += [hbuf, ypart]
 
-        fn = getattr(lib, f"gru_ar_{_WEIGHT_DTYPES[weight_dtype]}")
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        name = "gru_ar_train" if train else "gru_ar"
+        fn = getattr(lib, f"{name}_{_WEIGHT_DTYPES[weight_dtype]}")
+        fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        err = fn(_ptr(gx), _ptr(wy), _ptr(whh), _ptr(bhh), _ptr(wout), _ptr(bout),
-                 _ptr(y0c), _ptr(h0c), _ptr(trj), _ptr(y_last), _ptr(h_last),
-                 _ptr(hbuf), _ptr(ypart), B, T, hidden, out_dim, grid, units,
-                 stage_rows, smem,
-                 ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-        _build.check(lib, err, "gru_ar launch")
+        err = fn(*(_ptr(t) for t in ptrs), B, T, hidden, out_dim, grid, units,
+                 stage_rows, smem, _stream(dev))
+        _build.check(lib, err, f"{name} launch")
+    if train:
+        cuda_gru_ar_train.launches += 1
+        return trj, y_last, h_last, h_seq
     cuda_gru_ar.launches += 1
     return trj, y_last, h_last
+
+
+def cuda_gru_ar_bwd(wout: torch.Tensor, whh: torch.Tensor, wy: torch.Tensor,
+                    bhh: torch.Tensor, d_trj: torch.Tensor, gates_x: torch.Tensor,
+                    y_prev: torch.Tensor, h_prev: torch.Tensor, out_mask: torch.Tensor,
+                    d_hT: torch.Tensor, d_yT: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Reverse-time cotangent scan of the AR-GRU (K3), with the gates
+    recomputed in the kernel.  Weights in torch layout: ``wout`` (out,H),
+    ``whh`` (3H,H), ``wy`` (3H,out); the weight dtype is ``whh.dtype``.
+    Returns (dgx, dgh (B,T,3H) at the weight dtype, dy_tot (B,T,out), dh0
+    (B,H), dy0 (B,out) float32)."""
+    args = (wout, whh, wy, bhh, d_trj, gates_x, y_prev, h_prev, out_mask, d_hT, d_yT)
+    if d_trj.device.type == "cpu":
+        return gru_ar_bwd_reference(*args)
+    return launch_bwd(_build.load("gru_ar_bwd"), *args)
+
+
+cuda_gru_ar_bwd.launches = 0
+
+
+def launch_bwd(lib: ctypes.CDLL, wout: torch.Tensor, whh: torch.Tensor, wy: torch.Tensor,
+               bhh: torch.Tensor, d_trj: torch.Tensor, gates_x: torch.Tensor,
+               y_prev: torch.Tensor, h_prev: torch.Tensor, out_mask: torch.Tensor,
+               d_hT: torch.Tensor, d_yT: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Check the inputs, allocate outputs and scratch, and launch the kernel
+    of ``lib`` (a build of ``csrc/gru_ar_bwd.cu``) on the current stream."""
+    wdt = whh.dtype
+    dev = d_trj.device
+    _check_common("gru_ar_bwd", dev, wdt,
+                  (wout, whh, wy, bhh, d_trj, gates_x, y_prev, h_prev, out_mask, d_hT, d_yT))
+    B, T, hidden = h_prev.shape
+    out_dim = d_trj.shape[-1]
+    want = {"wout": (out_dim, hidden), "whh": (3 * hidden, hidden), "wy": (3 * hidden, out_dim),
+            "bhh": (3 * hidden,), "d_trj": (B, T, out_dim), "gates_x": (B, T, 3 * hidden),
+            "y_prev": (B, T, out_dim), "out_mask": (B, T, hidden), "d_hT": (B, hidden),
+            "d_yT": (B, out_dim)}
+    got = dict(wout=wout, whh=whh, wy=wy, bhh=bhh, d_trj=d_trj, gates_x=gates_x,
+               y_prev=y_prev, out_mask=out_mask, d_hT=d_hT, d_yT=d_yT)
+    for k, shape in want.items():
+        if tuple(got[k].shape) != shape:
+            raise ValueError(f"{k} {tuple(got[k].shape)} is not {shape} "
+                             f"(B={B}, T={T}, H={hidden}, out={out_dim})")
+    if T < 1:
+        raise ValueError("the gru_ar_bwd kernel needs T >= 1")
+
+    with torch.cuda.device(dev):
+        w = lambda a: a.to(wdt).contiguous()
+        f = lambda a: a.to(_F32).contiguous()
+        ins = [f(d_trj), w(gates_x), w(y_prev), w(h_prev), w(out_mask), w(wout),
+               w(whh), w(wy), f(bhh), f(d_hT), f(d_yT)]
+        grid, units, chunk, stage_rows, smem = plan_bwd(lib, B, hidden, out_dim, wdt)
+        dgx = torch.empty((B, T, 3 * hidden), dtype=wdt, device=dev)
+        dgh = torch.empty((B, T, 3 * hidden), dtype=wdt, device=dev)
+        dy_tot = torch.empty((B, T, out_dim), dtype=_F32, device=dev)
+        dh0 = torch.empty((B, hidden), dtype=_F32, device=dev)
+        dy0 = torch.empty((B, out_dim), dtype=_F32, device=dev)
+        # scratch rows padded to 16 bytes for cp.async; the dgh pad stays 0
+        dghbuf = torch.zeros((2, B, _up8(3 * hidden)), dtype=wdt, device=dev)
+        dypart = torch.empty((2, grid, _up4(B * out_dim)), dtype=_F32, device=dev)
+        ptrs = ins + [dgx, dgh, dy_tot, dh0, dy0, dghbuf, dypart]
+
+        fn = getattr(lib, f"gru_ar_bwd_{_WEIGHT_DTYPES[wdt]}")
+        fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = fn(*(_ptr(t) for t in ptrs), B, T, hidden, out_dim, grid, units, chunk,
+                 stage_rows, smem, _stream(dev))
+        _build.check(lib, err, "gru_ar_bwd launch")
+    cuda_gru_ar_bwd.launches += 1
+    return dgx, dgh, dy_tot, dh0, dy0

@@ -1,12 +1,18 @@
-"""Reading the JAX package's checkpoints without JAX.
+"""Checkpoints: the port's own, and reading the JAX package's without JAX.
 
-``cyclevae_tpu/vi/checkpoint.py`` pickles ``{"params", "opt_state",
-"jax_key", "np_rng_state", "epoch"}`` to ``checkpoint-<epoch>.pkl``, with
-numpy leaves.  The pickle names ``cyclevae_tpu.vi.train.CycleVAEParams`` and
+The port pickles ``{"params", "opt_state", "rng_state", "np_rng_state",
+"epoch"}`` to ``checkpoint-<epoch>.pkl`` (``save_checkpoint``), all numpy:
+the parameters, the optimizer's ``state_dict``, the ``torch.Generator``'s
+state and the numpy Generator's, as ``cyclevae_tpu/vi/checkpoint.py`` does
+with the JAX key in place of the generator (reference train…py:152-167:
+resume reproduces the training trajectory).  ``restore_train_state`` turns
+one back into a ``TrainState``.
+
+The JAX package's pickles name ``cyclevae_tpu.vi.train.CycleVAEParams`` and
 optax's state NamedTuples, so a plain ``pickle.load`` would import JAX.  The
 unpickler here maps ``CycleVAEParams`` to the port's own class and every other
 ``jax`` / ``jaxlib`` / ``optax`` / ``cyclevae_tpu`` class to an inert
-stand-in; only ``params`` is used by the port so far.
+stand-in; of those, only ``params`` is used by the port so far.
 """
 
 from __future__ import annotations
@@ -14,9 +20,13 @@ from __future__ import annotations
 import functools
 import os
 import pickle
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
-from .train import CycleVAEParams
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+from .train import CycleVAEParams, Optimizer, TrainState, params_to
 
 _FOREIGN = ("jax", "jaxlib", "optax", "cyclevae_tpu")
 
@@ -72,3 +82,70 @@ def latest_checkpoint(checkpoint_dir: str) -> str:
     if not epochs:
         raise FileNotFoundError(f"no checkpoints in {checkpoint_dir}")
     return os.path.join(checkpoint_dir, f"checkpoint-{max(epochs)}.pkl")
+
+
+def _to_numpy(tree):
+    if isinstance(tree, CycleVAEParams):
+        return CycleVAEParams(*(_to_numpy(net) for net in tree))
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_numpy(v) for v in tree)
+    if torch.is_tensor(tree):
+        return tree.detach().cpu().numpy()
+    return tree
+
+
+def _to_torch(tree):
+    """numpy leaves -> CPU tensors (copies), structure kept."""
+    if isinstance(tree, dict):
+        return {k: _to_torch(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_torch(v) for v in tree)
+    if isinstance(tree, np.ndarray):
+        return torch.from_numpy(tree.copy())
+    return tree
+
+
+def save_checkpoint(checkpoint_dir: str, params: CycleVAEParams,
+                    opt_state: torch.optim.Optimizer, generator: torch.Generator,
+                    np_rng: np.random.Generator, epoch: int,
+                    name: Optional[str] = None) -> str:
+    """Pickle a training state with numpy leaves to
+    ``checkpoint_dir/checkpoint-<epoch>.pkl`` (or ``name``), atomically: a
+    rolling ``checkpoint-latest.pkl`` is overwritten in place every epoch,
+    and a crash mid-write must not corrupt the resume point."""
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    ckpt = {
+        "params": _to_numpy(params),
+        "opt_state": _to_numpy(opt_state.state_dict()),
+        "rng_state": generator.get_state().numpy(),
+        "np_rng_state": np_rng.bit_generator.state,
+        "epoch": epoch,
+    }
+    path = os.path.join(checkpoint_dir, name or f"checkpoint-{epoch}.pkl")
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(ckpt, f)
+    os.replace(tmp, path)
+    return path
+
+
+def restore_train_state(ckpt: Dict[str, Any], optimizer: Optimizer,
+                        device=None) -> TrainState:
+    """A ``TrainState`` from one of the port's checkpoints: the parameters on
+    ``device`` (CUDA unless ``device="cpu"``), a fresh optimizer of ``optimizer`` loaded with the saved
+    state, and a generator on ``device`` with the saved state."""
+    device = resolve_device(device)
+    params = params_to(CycleVAEParams(*(_to_torch(net) for net in ckpt["params"])), device)
+    opt = optimizer.init(params)
+    opt.load_state_dict(_to_torch(ckpt["opt_state"]))
+    generator = torch.Generator(device=device)
+    generator.set_state(torch.from_numpy(np.asarray(ckpt["rng_state"], dtype=np.uint8)))
+    return TrainState(params, opt, generator, 0)
+
+
+def restore_np_rng(state) -> np.random.Generator:
+    rng = np.random.default_rng()
+    rng.bit_generator.state = state
+    return rng

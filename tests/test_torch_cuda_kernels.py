@@ -1,4 +1,5 @@
-"""The port's CUDA AR-GRU kernel against its plain PyTorch version, on the card.
+"""The port's CUDA AR-GRU kernels (K1 inference forward, K2 training forward,
+K3 reverse-time scan) against their plain PyTorch versions, on the card.
 
 These tests need an NVIDIA GPU and ``nvcc`` and skip elsewhere.  They import
 no JAX, so they also run where JAX is not installed:
@@ -10,7 +11,15 @@ import pytest
 import torch
 
 from cyclevae_tpu_torch.models.layers import init_dense, init_gru_stack
-from cyclevae_tpu_torch.ops.cuda_gru import cuda_gru_ar, gru_ar_reference
+from cyclevae_tpu_torch.ops.cuda_gru import (
+    cuda_gru_ar,
+    cuda_gru_ar_bwd,
+    cuda_gru_ar_train,
+    gru_ar_bwd_reference,
+    gru_ar_reference,
+    gru_ar_train_reference,
+)
+from cyclevae_tpu_torch.ops.gru_ar_vjp import gru_ar_fused
 from cyclevae_tpu_torch.ops.gru_scan import precompute_input_gates
 
 
@@ -78,3 +87,109 @@ def test_counter_counts_launches_and_bad_input_raises(cuda_device):
     with pytest.raises(ValueError):
         cuda_gru_ar(layer, proj, gx, y0[:1], h0)
     assert cuda_gru_ar.launches == before + 2
+
+
+def _mask(dev, B, T, H, seed=1, keep=0.5):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.rand((B, T, H), generator=gen, device=dev) < keep).float() / keep
+
+
+def _assert_matches(g, w, wdt, scale_tol=5e-5):
+    """float32: sums of up to 3H+out products taken in another order (atol
+    scaled by the largest value).  bf16: the same roundings on both sides,
+    but a sum on a rounding boundary can round the other way, and bf16
+    streams: the JAX package's bf16 bounds."""
+    assert g.dtype == w.dtype and g.shape == w.shape
+    g, w = g.float(), w.float()
+    assert bool(torch.isfinite(g).all())
+    if wdt == torch.float32:
+        scale = max(float(w.abs().max()), 1.0)
+        torch.testing.assert_close(g, w, atol=scale_tol * scale, rtol=0)
+    else:
+        rel = torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w)
+        cos = torch.nn.functional.cosine_similarity(g.flatten(), w.flatten(), dim=0)
+        assert rel < 3e-2 and cos > 0.999
+
+
+TRAIN_SHAPES = [
+    (1, 20, 1024, 64),   # one batch row
+    (5, 30, 1024, 64),   # the encoder calls of a bsu-5 train step
+    (10, 30, 1024, 50),  # the fused 2B decoder call
+    (16, 12, 1024, 50),  # beyond the main path's widest batch
+    (3, 25, 1030, 50),   # a ragged last block, Whh rows in shared memory
+    (2, 10, 40, 8),      # a small width
+    (3, 1, 64, 7),       # one step; B*out not a multiple of 4
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,out", TRAIN_SHAPES)
+def test_train_kernel_matches_plain(cuda_device, wdt, B, T, H, out):
+    layer, proj, gx, y0, h0 = _problem(cuda_device, B, T, H, out)
+    mask = _mask(cuda_device, B, T, H)
+    got = cuda_gru_ar_train(layer, proj, gx, y0, h0, mask, wdt)
+    want = gru_ar_train_reference(layer, proj, gx, y0, h0, mask, wdt)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _assert_matches(g, w, wdt)
+
+
+def _bwd_args(dev, B, T, H, out, wdt, seed=2):
+    layer, proj, gx, _, _ = _problem(dev, B, T, H, out, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)
+    return (proj["w"].to(wdt), layer["w_hh"].to(wdt), layer["w_ih"][:, -out:].to(wdt),
+            layer["b_hh"], r(B, T, out), gx, 0.5 * r(B, T, out), torch.tanh(r(B, T, H)),
+            _mask(dev, B, T, H, seed), r(B, H), r(B, out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,out", TRAIN_SHAPES)
+def test_bwd_kernel_matches_plain(cuda_device, wdt, B, T, H, out):
+    args = _bwd_args(cuda_device, B, T, H, out, wdt)
+    got = cuda_gru_ar_bwd(*args)
+    want = gru_ar_bwd_reference(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _assert_matches(g, w, wdt, scale_tol=2e-4)
+
+
+@pytest.mark.cuda
+def test_train_counters_count_launches_and_bad_input_raises(cuda_device):
+    layer, proj, gx, y0, h0 = _problem(cuda_device, 2, 6, 32, 8)
+    mask = _mask(cuda_device, 2, 6, 32)
+    before = cuda_gru_ar_train.launches, cuda_gru_ar_bwd.launches, cuda_gru_ar.launches
+    cuda_gru_ar_train(layer, proj, gx, y0, h0, mask)
+    cuda_gru_ar_bwd(*_bwd_args(cuda_device, 2, 6, 32, 8, torch.bfloat16))
+    assert (cuda_gru_ar_train.launches, cuda_gru_ar_bwd.launches, cuda_gru_ar.launches) == \
+        (before[0] + 1, before[1] + 1, before[2])
+    with pytest.raises(ValueError):
+        cuda_gru_ar_train(layer, proj, gx, y0, h0, mask[:, :3])
+    bad = list(_bwd_args(cuda_device, 2, 6, 32, 8, torch.float32))
+    bad[9] = bad[9][:1]
+    with pytest.raises(ValueError):
+        cuda_gru_ar_bwd(*bad)
+    assert (cuda_gru_ar_train.launches, cuda_gru_ar_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+def test_fused_function_cuda_backward_matches_cpu_plain(cuda_device, wdt):
+    """gradcheck-style: the Function's gradients through K2 and K3 on the
+    card against the same Function on the CPU (the plain versions), same
+    inputs; bf16 at the JAX package's bf16 bounds."""
+    B, T, H, out = 5, 16, 1024, 64
+    layer, proj, gx, y0, h0 = _problem(cuda_device, B, T, H, out)
+    mask = _mask(cuda_device, B, T, H)
+    vals = (layer["w_ih"][:, -out:], layer["w_hh"], layer["b_hh"], proj["w"], proj["b"],
+            gx, y0, h0, mask)
+    grads = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        ts = [v.detach().to(dev).requires_grad_(True) for v in vals]
+        trj, y_T, h_T = gru_ar_fused(*ts, weight_dtype=wdt)
+        (trj.pow(2).sum() + y_T.sin().sum() + h_T.pow(2).sum()).backward()
+        grads[dev.type] = [t.grad.to("cpu") for t in ts]
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        _assert_matches(g, w, wdt, scale_tol=2e-4)

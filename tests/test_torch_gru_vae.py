@@ -1,5 +1,7 @@
 """The port's GRU-VAE inference forward and samplers against the JAX package (CPU)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -127,11 +129,17 @@ def test_init_and_scale_stats_match_jax_structure():
 
 
 def test_training_arguments_raise():
+    """Dropout and input noise draw from an explicit ``Draws``: without one
+    they raise rather than take the global RNG.  (``differentiable`` needs
+    no draws; tests/test_torch_train.py covers the training path.)"""
     _, tc, _, tp = _models()
     x, y = torch.zeros(1, 4, 54), torch.zeros(1, 64)
-    for kw in ({"do": True}, {"noise": 0.1}, {"differentiable": True}):
-        with pytest.raises(NotImplementedError):
-            tv.gru_rnn_apply(tp.encoder, tc.enc_cfg, x, y, **kw)
+    cfg = dataclasses.replace(tc.enc_cfg, do_prob=0.5)
+    for kw in ({"do": True}, {"noise": 0.1}):
+        with pytest.raises(ValueError):
+            tv.gru_rnn_apply(tp.encoder, cfg, x, y, **kw)
+    out, _, _ = tv.gru_rnn_apply(tp.encoder, cfg, x, y, differentiable=True, use_pallas=True)
+    assert out.shape == (1, 4, 64)
 
 
 @pytest.mark.parametrize("laplace", [False, True])
