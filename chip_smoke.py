@@ -5,14 +5,18 @@
 
 Phases, one line or more each; any failure exits non-zero:
   1. build    every CUDA kernel of the port from ``cyclevae_tpu_torch/csrc``
-              (one nvcc per source, all started together);
+              (``gru_ar.cu``, ``gru_ar_bwd.cu``, ``wavernn.cu``; one nvcc per
+              source, all started together);
   2. kernels  each kernel against its plain PyTorch version on the card,
               float32 and bf16, with kernel and plain times from CUDA events
               and the bound: K1 at the conversion path's shapes (H=1024,
               T=1120: encoder B=2 out=64, decoder B=3 out=50); K2 and K3 at the
               training step's four calls (T=80: encoder B=5 out=64, fused 2B
               decoder B=10 out=50, cv encoder B=5 out=64, cyclic decoder B=5
-              out=50), and K3 also at T=560;
+              out=50), and K3 also at T=560; K4 (the WaveRNN sampler, hu896,
+              256 classes, T=4,000 samples) at B=1 and B=4, greedy and
+              sampled, held index by index by the near-tie rule, and its
+              sampled draws against the categorical distribution they follow;
   3. main     the stage-6 conversion path of the flagship hu1024 CycleVAE
               (random weights from a seed, stats baked in): 4 requests
               through ``Codec`` + ``device_decode_pair`` per dtype, with the
@@ -24,6 +28,13 @@ Phases, one line or more each; any failure exits non-zero:
               and K3 launch counts read around them; then one step each of
               the kernel path and of the plain path (``use_pallas=False``) on
               the same replayed draws, their losses compared;
+  5. vocode   neural-vocoder synthesis of converted speech: phase 3's 4
+              requests converted (float32 ``Codec``, K1), GV-postfiltered,
+              their F0 converted, assembled into vocoder conditioning and
+              rendered by the hu896 WaveRNN through ``synthesize_vocoder``
+              (K4, temperature 0.8), plus one request through a 2-speaker
+              vocoder; the launch counts read around them; then the first
+              4,000 samples of one request held against the plain sampler;
 then the card's name and power limit, one JSON line of the kernels, and as
 the last line ``{"ok": true, "device": {...}}``.
 
@@ -85,6 +96,13 @@ GRAD_SCALE_TOL = 2e-4
 #   order can move a weight the other way: 2e-3 relative
 LOSS_F32_SEG0 = 2e-4
 LOSS_F32_ALL = 2e-3
+# the WaveRNN vocoder (WaveRNNConfig defaults: hu896, 256 mu-law classes,
+# fc 128) and its sampler
+T_VOC = 4000                        # samples held against the plain sampler
+VOC_TEMPERATURE = 0.8               # the recipe's vocoder_temperature
+VOC_DIST_ROWS, VOC_DIST_T = 4, 50_000   # 200,000 draws for the distribution check
+SAMPLE_RATE = 22050                 # 5 ms frames at hop 110.25
+SHIFT_MS = 5.0
 
 
 def log(msg: str) -> None:
@@ -162,10 +180,21 @@ def gru_ar_bwd_bound_ms(B: int, T: int, out: int, wdt: torch.dtype):
     return elementwise_bound_ms(ops, nbytes, wdt)
 
 
+def wavernn_bound_ms(B: int, T: int, cfg):
+    """K4: operations as ``pallas_wavernn.py:138-142`` counts them; bytes of
+    the conditioning gates read once, the weights (gate table, Whh, b_hh,
+    W1, b1, W2, b2) read once and the indices written once."""
+    H, K, FC = cfg.hidden_units, cfg.n_classes, cfg.fc_dim
+    ops = 2 * T * B * (H * 3 * H + H * FC + FC * K)
+    nbytes = (T * B * 3 * H * 4 + (K * 3 * H + 3 * H * H + 3 * H + FC * H + FC + K * FC + K) * 4
+              + T * B * 4)
+    return elementwise_bound_ms(ops, nbytes, torch.float32)
+
+
 def phase_build():
     from cyclevae_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    paths = _build.build(["gru_ar", "gru_ar_bwd"])
+    paths = _build.build(["gru_ar", "gru_ar_bwd", "wavernn"])
     log(f"[build] {len(paths)} kernel source(s) in {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -299,6 +328,90 @@ def phase_train_kernels(dev):
                     f"({ms * 1e3 / T:.2f} us/step) plain={plain_ms:.1f} ms "
                     f"bound={bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}")
     return results
+
+
+def _vocoder(dev, seed: int, n_spk: int = 0):
+    """The flagship WaveRNN (``WaveRNNConfig`` defaults) with random weights
+    from ``seed`` and non-zero biases."""
+    from cyclevae_tpu_torch.models.wavernn import WaveRNNConfig, init_wavernn
+
+    cfg = WaveRNNConfig(n_spk=n_spk)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_wavernn(gen, cfg)
+    params["gru"]["b_ih"].uniform_(-0.5, 0.5, generator=gen)
+    params["gru"]["b_hh"].uniform_(-0.5, 0.5, generator=gen)
+    params["fc1"]["b"].uniform_(-0.1, 0.1, generator=gen)
+    params["fc2"]["b"].uniform_(-0.02, 0.02, generator=gen)
+    return cfg, params
+
+
+def phase_vocoder_kernel(dev):
+    """K4 against its plain version at the sampler's shapes, and its sampled
+    draws against the distribution they follow."""
+    from scipy import stats
+
+    from cyclevae_tpu_torch.models.wavernn import mulaw_decode
+    from cyclevae_tpu_torch.ops import _build
+    from cyclevae_tpu_torch.ops.cuda_wavernn import (NEAR_TIE_REL, cuda_wavernn_generate,
+                                                     first_divergence, plan,
+                                                     wavernn_generate_reference)
+
+    cfg, params = _vocoder(dev, SEED + 4)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    results, ok = {}, True
+    for B in (1, 4):
+        cond = torch.tanh(torch.randn((B, T_VOC, cfg.cond_dim), generator=gen, device=dev))
+        pl = plan(_build.load("wavernn"), B, cfg.hidden_units, cfg.n_classes, cfg.fc_dim)
+        for temp in (0.0, VOC_TEMPERATURE):
+            args = (params, cfg, cond, SEED + B, temp)
+            got = cuda_wavernn_generate(*args)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            want, gap, scale = wavernn_generate_reference(*args, margins=True)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            steps, match = first_divergence(got, want, gap, scale)
+            err = float((mulaw_decode(got) - mulaw_decode(want)).abs().max())
+            ms = cuda_ms(lambda: cuda_wavernn_generate(*args), iters=3)
+            bound_ms, bound_by = wavernn_bound_ms(B, T_VOC, cfg)
+            key = f"B{B}/{'greedy' if temp == 0 else f'sampled{temp}'}"
+            results[key] = dict(B=B, T=T_VOC, temperature=temp, first_divergence=steps,
+                                max_abs_err=err, ms=ms, us_per_sample=ms * 1e3 / T_VOC,
+                                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                plan=pl, ok=match)
+            ok &= match
+            first = ", ".join("none" if t < 0 else str(t) for t in steps)
+            log(f"[kernels] wavernn_generate {key} H={cfg.hidden_units} K={cfg.n_classes} "
+                f"fc={cfg.fc_dim} T={T_VOC} plan={pl} first divergence per row: {first} "
+                f"(near-tie rule {NEAR_TIE_REL}) max_abs (decoded) {err:.3e} "
+                f"kernel={ms:.3f} ms ({ms * 1e3 / T_VOC:.2f} us/sample) plain={plain_ms:.1f} ms "
+                f"bound={bound_ms:.4f} ms ({bound_by}) {'ok' if match else 'FAIL'}")
+
+    # fc2.w = 0: the logits are b2 at every step, so the draws are i.i.d.
+    # categorical(softmax(b2 / temperature))
+    flat = {**params, "fc2": {"w": torch.zeros_like(params["fc2"]["w"]),
+                              "b": torch.randn(cfg.n_classes, generator=gen, device=dev)}}
+    cond = torch.tanh(torch.randn((VOC_DIST_ROWS, VOC_DIST_T, cfg.cond_dim), generator=gen,
+                                  device=dev))
+    idx = cuda_wavernn_generate(flat, cfg, cond, SEED + 9, VOC_TEMPERATURE)
+    counts = np.bincount(idx.cpu().numpy().ravel(), minlength=cfg.n_classes)
+    p = np.exp(flat["fc2"]["b"].double().cpu().numpy() / VOC_TEMPERATURE)
+    expected = p / p.sum() * idx.numel()
+    keep = expected >= 5
+    chi2 = float((((counts - expected) ** 2) / expected)[keep].sum())
+    limit = float(stats.chi2.ppf(0.999, int(keep.sum()) - 1))
+    hot = {**flat, "fc2": {"w": flat["fc2"]["w"], "b": torch.zeros_like(flat["fc2"]["b"])}}
+    hot["fc2"]["b"][5] = 10.0
+    frac_hot = float((cuda_wavernn_generate(hot, cfg, cond[:, :2000], SEED + 10, 1.0) == 5)
+                     .float().mean())
+    dist_ok = chi2 < limit and frac_hot > 0.9
+    ok &= dist_ok
+    log(f"[kernels] wavernn_generate distribution: {idx.numel()} draws at temperature "
+        f"{VOC_TEMPERATURE}, chi-square {chi2:.1f} over {int(keep.sum())} classes (< {limit:.1f}, "
+        f"the 0.999 quantile); hot class (logit 10) in {frac_hot:.4f} of draws (> 0.9) "
+        f"{'ok' if dist_ok else 'FAIL'}")
+    return results, ok
 
 
 def synth_features(rng: np.random.Generator, T: int, in_dim: int = 54) -> np.ndarray:
@@ -511,6 +624,90 @@ def phase_train(dev):
     return ok, launches
 
 
+def phase_vocode(dev):
+    """Neural-vocoder synthesis of converted speech, as
+    ``tools/vocode_converted.py`` drives it (without ``mod_pow``, which needs
+    SPTK, not ported yet)."""
+    from cyclevae_tpu_torch.models.wavernn import mulaw_decode, n_samples_for, upsample_cond
+    from cyclevae_tpu_torch.ops.cuda_gru import cuda_gru_ar
+    from cyclevae_tpu_torch.ops.cuda_wavernn import (NEAR_TIE_REL, cuda_wavernn_generate,
+                                                     first_divergence,
+                                                     wavernn_generate_reference)
+    from cyclevae_tpu_torch.pipeline.decode import Codec, device_decode_pair, gv_postfilter
+    from cyclevae_tpu_torch.pipeline.features import convert_f0
+    from cyclevae_tpu_torch.pipeline.vocoder_stage import (converted_conditioning,
+                                                           synthesize_vocoder)
+    from cyclevae_tpu_torch.vi.train import CycleVAEConfig, init_cyclevae
+
+    rng = np.random.default_rng(SEED)   # phase 3's requests
+    pairs = [(synth_features(rng, s), synth_features(rng, t)) for s, t in REQUESTS]
+    allf = np.concatenate([f for p in pairs for f in p])
+    mean, scale = allf.mean(axis=0), allf.std(axis=0) + 1e-3
+    cfg = CycleVAEConfig(use_pallas=True, compute_dtype="float32")
+    codec = Codec(init_cyclevae(torch.Generator(device=dev).manual_seed(SEED), cfg, mean, scale,
+                                device=dev), cfg, device=dev)
+    vcfg, vparams = _vocoder(dev, SEED + 5)
+    vcfg2, vparams2 = _vocoder(dev, SEED + 6, n_spk=2)
+    # GV and log-F0 statistics of the synthetic speakers (the recipe reads
+    # them from stage 2's HDF5 stats)
+    f0 = lambda f: np.where(f[:, 0] > 0.5, np.exp(f[:, 1]), 0.0)
+    lf0 = lambda fs: np.log(np.concatenate([f0(f)[f0(f) > 0] for f in fs]))
+    lf0_src, lf0_trg = lf0([s for s, _ in pairs]), lf0([t for _, t in pairs])
+    gv_trg = np.mean([np.var(t[:, 5:], axis=0) for _, t in pairs], axis=0)
+    warm = converted_conditioning(pairs[0][0][:50], pairs[0][0][:50, 4:], f0(pairs[0][0][:50]),
+                                  SHIFT_MS)
+    synthesize_vocoder(vparams, vcfg, warm, seed=0, temperature=VOC_TEMPERATURE, device=dev)
+    synthesize_vocoder(vparams2, vcfg2, warm, seed=0, temperature=VOC_TEMPERATURE, spk_id=1,
+                       device=dev)
+
+    # ---- the main path: counts set to 0 just before, read just after ----
+    cuda_gru_ar.launches = cuda_wavernn_generate.launches = 0
+    cvmceps = [device_decode_pair(codec, torch.Generator(device=dev).manual_seed(100 + i),
+                                  src, trg)[2] for i, (src, trg) in enumerate(pairs)]
+    cvgv = np.mean([np.var(c[:, 1:], axis=0) for c in cvmceps], axis=0)
+    feats_cv = [converted_conditioning(
+        src, gv_postfilter(c, gv_trg, cvgv),
+        convert_f0(f0(src), lf0_src.mean(), lf0_src.std(), lf0_trg.mean(), lf0_trg.std()),
+        SHIFT_MS) for (src, _), c in zip(pairs, cvmceps)]
+    jobs = [(f"req{i}", vparams, vcfg, f, i, None) for i, f in enumerate(feats_cv)]
+    jobs.append(("req0/n_spk2", vparams2, vcfg2, feats_cv[0], 0, 1))
+    ok, waves = True, {}
+    for name, params, vc, feat, seed, spk in jobs:
+        before = cuda_wavernn_generate.launches
+        t0 = time.perf_counter()
+        y = synthesize_vocoder(params, vc, feat, seed=seed, temperature=VOC_TEMPERATURE,
+                               spk_id=spk, device=dev)
+        sec = time.perf_counter() - t0
+        launches = cuda_wavernn_generate.launches - before
+        n = n_samples_for(vc, len(feat))
+        good = (y.shape == (n,) and bool(np.isfinite(y).all()) and float(np.abs(y).max()) <= 1.0
+                and launches == 1 and np.isfinite(feat).all() and len(np.unique(y)) > 1)
+        ok &= good
+        waves[name] = y
+        log(f"[vocode] {name}: {len(feat)} frames -> {n} samples (n_spk {vc.n_spk}); vocoder "
+            f"{sec * 1e3:.1f} ms, {n / sec:.0f} samples/s, real-time factor "
+            f"{sec / (n / SAMPLE_RATE):.4f}; K4 launches {launches} (want 1); "
+            f"range [{float(y.min()):.3f}, {float(y.max()):.3f}] {'ok' if good else 'FAIL'}")
+    k1, k4 = cuda_gru_ar.launches, cuda_wavernn_generate.launches
+    ok &= k1 == 2 * len(pairs) and k4 == len(jobs)
+    log(f"[vocode] main path: K1 {k1} (want {2 * len(pairs)}), K4 {k4} (want {len(jobs)}) "
+        "launches; mod_pow skipped (needs SPTK, not ported yet)")
+
+    # ---- the first T_VOC samples of request 0 against the plain sampler ----
+    with torch.inference_mode():
+        cond = upsample_cond(vparams, vcfg, torch.as_tensor(feats_cv[0], device=dev)[None])
+        want, gap, scale = wavernn_generate_reference(vparams, vcfg, cond[:, :T_VOC], 0,
+                                                      VOC_TEMPERATURE, margins=True)
+    got = torch.as_tensor(waves["req0"][:T_VOC])[None]
+    steps, match = first_divergence(got, mulaw_decode(want).cpu(), gap, scale)
+    ok &= match
+    log(f"[vocode] req0's first {T_VOC} samples against the plain sampler: first divergence "
+        f"{'none' if steps[0] < 0 else steps[0]} (near-tie rule {NEAR_TIE_REL}) "
+        f"{'ok' if match else 'FAIL'}")
+    log(f"[vocode] {'ok' if ok else 'FAIL'}")
+    return ok, k4
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -538,14 +735,18 @@ def main() -> int:
     phase_build()
     kern = phase_kernels(dev)
     train_kern = phase_train_kernels(dev)
+    voc_kern, voc_kern_ok = phase_vocoder_kernel(dev)
     main_ok, launches = phase_main(dev)
     train_ok, (k2_launches, k3_launches) = phase_train(dev)
-    ok = (main_ok and train_ok and all(r["ok"] for r in kern.values())
+    vocode_ok, k4_launches = phase_vocode(dev)
+    ok = (main_ok and train_ok and vocode_ok and voc_kern_ok
+          and all(r["ok"] for r in kern.values())
           and all(r["ok"] for r in train_kern.values()))
 
     def entry(name, source, replaces, n, r):
         # no PyTorch call computes an AR GRU or its reverse scan
-        # (torch.nn.GRU has no output feedback): library_ms is null
+        # (torch.nn.GRU has no output feedback), nor an AR sampler:
+        # library_ms is null
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -561,6 +762,9 @@ def main() -> int:
         entry("gru_ar_bwd", "cyclevae_tpu_torch/csrc/gru_ar_bwd.cu",
               "cyclevae_tpu/ops/pallas_gru.py:272", k3_launches,
               train_kern[f"gru_ar_bwd/decoder2B/T{SEG_LEN}/float32"]),
+        entry("wavernn_generate", "cyclevae_tpu_torch/csrc/wavernn.cu",
+              "cyclevae_tpu/ops/pallas_wavernn.py:82", k4_launches,
+              voc_kern[f"B1/sampled{VOC_TEMPERATURE}"]),
     ]}), flush=True)
     if not ok:
         print("chip_smoke: a phase failed", file=sys.stderr)

@@ -7,19 +7,22 @@ imports ``torch`` and never ``jax`` or ``cyclevae_tpu``.
 
 Sub-packages
 ------------
-- ``utils``    : typed configs (a copy of the JAX package's), device choice.
+- ``utils``    : typed configs (a copy of the JAX package's), device choice,
+                 waveform I/O and FIR filters (a copy).
 - ``models``   : GRU-VAE nets as plain functions on parameter dicts,
                  parameter init from a ``torch.Generator``, sampling, KL
-                 terms, the training forward's draws.
+                 terms, the training forward's draws; the WaveRNN vocoder.
 - ``ops``      : the plain AR-GRU scan and the CUDA AR-GRU kernels
                  (``csrc/gru_ar.cu``: inference and training forward;
-                 ``csrc/gru_ar_bwd.cu``: the backward), built with ``nvcc``
-                 at first use, and the autograd Function over them.
+                 ``csrc/gru_ar_bwd.cu``: the backward), the autograd
+                 Function over them, and the WaveRNN sampler
+                 (``csrc/wavernn.cu``), all built with ``nvcc`` at first use.
 - ``vi``       : model assembly, the training core (cyclic ELBO, TBPTT
                  train step, Adam), checkpoints (the port's, and JAX's read
                  without JAX).
 - ``pipeline`` : the stage-6 conversion engine (``Codec``), batching, the
-                 train stage's helpers.
+                 train stage's helpers, the F0 helpers of stage 1, and
+                 neural-vocoder synthesis (``synthesize_vocoder``).
 - ``interop``  : JAX parameter pytrees <-> the port's tensors.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

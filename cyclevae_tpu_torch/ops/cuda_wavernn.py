@@ -1,0 +1,241 @@
+"""WaveRNN autoregressive sampling (K4): CUDA kernel + plain version + Philox.
+
+PyTorch counterpart of ``cyclevae_tpu/ops/pallas_wavernn.py``, with the same
+contract: ``cuda_wavernn_generate(params, cfg, cond (B,T,cond_dim), seed,
+temperature) -> (B, T)`` int32 mu-law indices, all steps in ONE launch of the
+hand-written kernel ``csrc/wavernn.cu`` (design notes there) for CUDA tensors,
+and its plain version ``wavernn_generate_reference`` for CPU tensors.  A CUDA
+tensor never falls back: the kernel launches or the call raises.  The
+wrapper's ``launches`` counts the kernel's launches.
+
+As in the TPU wrapper, the (n_classes, 3H) embed gate table and the
+conditioning gates ``cond @ w_cond^T + b_ih`` are computed outside the kernel
+(``torch.matmul``); everything is float32.
+
+Per step, for each batch row: the input gates are the conditioning gates
+plus the table row of the previous sample (K//2 at t=0, with h=0); one GRU
+cell; logits ``relu(h W1^T + b1) W2^T + b2``; then, when ``temperature > 0``,
+scores ``logits / max(temperature, 1e-6) + g`` with Gumbel noise
+``g = -log(-log(u + 1e-9) + 1e-9)`` from uniforms ``u = (bits & 0x7fffff) *
+2^-23``, else scores = logits; the sample is the argmax (ties to the lowest
+index), written out and fed back.
+
+The TPU kernel's bits come from its on-chip generator, which no CUDA code can
+reproduce.  Here they come from Philox4x32-10 (Salmon et al., SC'11), which
+the kernel computes itself and ``philox4x32_10`` computes in torch: key
+(seed, 0), counter (t, b, k // 4, 0), word k % 4 for class k.  So the kernel
+and its plain version draw the same uniforms, and the sampled output can be
+held index by index, not only in distribution.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, Tuple
+
+import torch
+
+from . import _build
+from .cuda_gru import _ptr, _stream, _up4
+from ..models.wavernn import WaveRNNConfig, cond_gates, embed_gate_table
+
+_F32 = torch.float32
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_STEPS_PER_CHUNK = 4096   # uniforms drawn per pass, to bound the int64 temporaries
+# Over thousands of dependent argmaxes, a float32 near-tie can flip one index
+# between the kernel and its plain version (they sum in different orders),
+# after which the two trajectories part.  A flip is accepted only where the
+# plain version's two best scores lie within this fraction of its largest
+# |score| at that step.
+NEAR_TIE_REL = 1e-4
+
+
+def _mulhilo(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(high, low) 32-bit halves of the 64-bit product a * b of two 32-bit
+    values, in int64 arithmetic without overflow (b split in 16-bit halves)."""
+    x = a * (b & 0xFFFF)                 # < 2^48
+    s = a * (b >> 16) + (x >> 16)        # < 2^49; a*b = s*2^16 + (x & 0xFFFF)
+    return s >> 16, ((s & 0xFFFF) << 16) | (x & 0xFFFF)
+
+
+def philox4x32_10(counter: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """Philox4x32-10 on int64 tensors holding 32-bit values: counter (..., 4)
+    and key (..., 2), broadcast together -> (..., 4) random words."""
+    c0, c1, c2, c3 = counter.to(torch.int64).unbind(-1)
+    k0, k1 = key.to(torch.int64).unbind(-1)
+    for i in range(10):
+        if i:
+            k0 = (k0 + _PHILOX_W[0]) & _MASK32
+            k1 = (k1 + _PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return torch.stack([c0, c1, c2, c3], dim=-1)
+
+
+def philox_uniforms(seed: int, t0: int, T: int, B: int, K: int,
+                    device=None) -> torch.Tensor:
+    """The kernel's uniforms for steps [t0, t0+T): (T, B, K) float32 in
+    [0, 1), u = (bits & 0x7fffff) * 2^-23 with bits the Philox word of
+    counter (t, b, k // 4, 0) and key (seed, 0)."""
+    words = (K + 3) // 4
+    i64 = dict(dtype=torch.int64, device=device)
+    t = torch.arange(t0, t0 + T, **i64)[:, None, None].expand(T, B, words)
+    b = torch.arange(B, **i64)[None, :, None].expand(T, B, words)
+    w = torch.arange(words, **i64)[None, None, :].expand(T, B, words)
+    counter = torch.stack([t, b, w, torch.zeros_like(t)], dim=-1)
+    key = torch.tensor([seed & _MASK32, 0], **i64)
+    bits = philox4x32_10(counter, key).reshape(T, B, 4 * words)[..., :K]
+    return (bits & 0x7FFFFF).to(_F32) * (1.0 / (1 << 23))
+
+
+def _gates(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor):
+    """(emb_tab (K, 3H), cond_gates (B, T, 3H)), float32, computed outside
+    the kernel as the TPU wrapper computes them."""
+    return embed_gate_table(params).to(_F32), cond_gates(params, cfg, cond.to(_F32)).to(_F32)
+
+
+def wavernn_generate_reference(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
+                               seed: int, temperature: float = 1.0,
+                               margins: bool = False):
+    """Plain PyTorch version of K4, step by step, with the kernel's numerics
+    and its Philox uniforms.  Returns (B, T) int32 indices; with
+    ``margins``, also (B, T) float32 tensors of each step's gap between the
+    two largest scores and its largest |score| (what a near-tie test reads)."""
+    B, T, _ = cond.shape
+    H, K = cfg.hidden_units, cfg.n_classes
+    dev = cond.device
+    emb_tab, gates = _gates(params, cfg, cond)
+    g = params["gru"]
+    whh, bhh = g["w_hh"].to(_F32), g["b_hh"].to(_F32)
+    w1, b1 = params["fc1"]["w"].to(_F32), params["fc1"]["b"].to(_F32)
+    w2, b2 = params["fc2"]["w"].to(_F32), params["fc2"]["b"].to(_F32)
+    sampled = temperature > 0
+    # a tensor divisor, so that the division is a true division on every device
+    tdiv = torch.full((1,), max(temperature, 1e-6), dtype=_F32, device=dev)
+
+    h = torch.zeros((B, H), dtype=_F32, device=dev)
+    idx = torch.full((B,), K // 2, dtype=torch.int64, device=dev)
+    out = torch.empty((B, T), dtype=torch.int32, device=dev)
+    gap = torch.empty((B, T), dtype=_F32, device=dev) if margins else None
+    scale = torch.empty((B, T), dtype=_F32, device=dev) if margins else None
+    for t0 in range(0, T, _STEPS_PER_CHUNK):
+        n = min(_STEPS_PER_CHUNK, T - t0)
+        if sampled:
+            u = philox_uniforms(seed, t0, n, B, K, dev)
+            gumbel = -torch.log(-torch.log(u + 1e-9) + 1e-9)
+        for s in range(n):
+            t = t0 + s
+            gx = gates[:, t] + emb_tab[idx]
+            gh = h @ whh.T + bhh
+            r = torch.sigmoid(gx[:, :H] + gh[:, :H])
+            z = torch.sigmoid(gx[:, H:2 * H] + gh[:, H:2 * H])
+            nn = torch.tanh(gx[:, 2 * H:] + r * gh[:, 2 * H:])
+            h = (1.0 - z) * nn + z * h
+            logits = torch.relu(h @ w1.T + b1) @ w2.T + b2
+            scores = logits / tdiv + gumbel[s] if sampled else logits
+            idx = torch.argmax(scores, dim=-1)
+            out[:, t] = idx
+            if margins:
+                top2 = torch.topk(scores, min(2, K), dim=-1).values
+                gap[:, t] = top2[:, 0] - top2[:, -1]
+                scale[:, t] = scores.abs().amax(dim=-1)
+    return (out, gap, scale) if margins else out
+
+
+def first_divergence(got: torch.Tensor, want: torch.Tensor, gap: torch.Tensor,
+                     scale: torch.Tensor, rel: float = NEAR_TIE_REL) -> Tuple[List[int], bool]:
+    """Hold the kernel's indices ``got`` (B, T) against the plain version's
+    ``want`` with its ``margins`` (``gap``, ``scale``): every index before a
+    row's first difference matches by definition, and the difference is
+    accepted if the plain version's top-two gap there is below ``rel`` times
+    its largest |score|.  Returns (first differing step of each row, -1 where
+    none; whether every row passes)."""
+    got, want = got.cpu(), want.cpu()
+    gap, scale = gap.cpu(), scale.cpu()
+    steps, ok = [], True
+    for b in range(want.shape[0]):
+        diff = torch.nonzero(got[b] != want[b])
+        if len(diff) == 0:
+            steps.append(-1)
+            continue
+        t = int(diff[0])
+        steps.append(t)
+        ok &= bool(gap[b, t] < rel * scale[b, t])
+    return steps, ok
+
+
+def plan(lib: ctypes.CDLL, batch: int, hidden: int, n_classes: int,
+         fc_dim: int) -> Tuple[int, int, int, int]:
+    """(blocks, hidden units per block, fc1 values summed per pass, dynamic
+    shared bytes) of one K4 launch on the current CUDA device; raises when
+    the shapes cannot run there."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    fn = lib.wavernn_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.restype = ctypes.c_int
+    err = fn(batch, hidden, n_classes, fc_dim, *(ctypes.byref(v) for v in vals))
+    _build.check(lib, err, f"wavernn_plan for B={batch} H={hidden} K={n_classes} fc={fc_dim}")
+    return tuple(v.value for v in vals)
+
+
+def cuda_wavernn_generate(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
+                          seed: int, temperature: float = 1.0) -> torch.Tensor:
+    """Generate mu-law sample indices (B, T) int32 for all steps in one
+    kernel launch (K4); the plain version for CPU tensors."""
+    if cond.device.type == "cpu":
+        return wavernn_generate_reference(params, cfg, cond, seed, temperature)
+    return launch(_build.load("wavernn"), params, cfg, cond, seed, temperature)
+
+
+cuda_wavernn_generate.launches = 0
+
+
+def launch(lib: ctypes.CDLL, params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
+           seed: int, temperature: float) -> torch.Tensor:
+    """Check the inputs, allocate the output and scratch, and launch the
+    kernel of ``lib`` (a build of ``csrc/wavernn.cu``) on the current
+    stream."""
+    dev = cond.device
+    if dev.type != "cuda":
+        raise ValueError(f"the wavernn kernel runs on CUDA tensors, got {dev}")
+    if cond.dim() != 3 or cond.shape[2] != cfg.cond_dim or cond.shape[1] < 1:
+        raise ValueError(f"cond {tuple(cond.shape)} is not (B, T >= 1, {cfg.cond_dim})")
+    B, T, _ = cond.shape
+    H, K, FC = cfg.hidden_units, cfg.n_classes, cfg.fc_dim
+    want = {("embed", None): (K, cfg.embed_dim),
+            ("gru", "w_ih"): (3 * H, cfg.embed_dim + cfg.cond_dim), ("gru", "b_ih"): (3 * H,),
+            ("gru", "w_hh"): (3 * H, H), ("gru", "b_hh"): (3 * H,),
+            ("fc1", "w"): (FC, H), ("fc1", "b"): (FC,), ("fc2", "w"): (K, FC), ("fc2", "b"): (K,)}
+    for (net, name), shape in want.items():
+        t = params[net] if name is None else params[net][name]
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{net}.{name} {tuple(t.shape)} is not {shape}")
+        if t.device != dev:
+            raise ValueError(f"{net}.{name} is on {t.device}, cond on {dev}")
+
+    with torch.cuda.device(dev):
+        emb_tab, gates = (t.contiguous() for t in _gates(params, cfg, cond))
+        f = lambda t: t.to(_F32).contiguous()
+        weights = [f(params["gru"]["w_hh"]), f(params["gru"]["b_hh"]),
+                   f(params["fc1"]["w"]), f(params["fc1"]["b"]),
+                   f(params["fc2"]["w"]), f(params["fc2"]["b"])]
+        grid, units, stage_rows, smem = plan(lib, B, H, K, FC)
+        out = torch.empty((B, T), dtype=torch.int32, device=dev)
+        # scratch rows padded to 16 bytes for the kernel's cp.async copies;
+        # h's padding is read by the dot products and must stay 0
+        hbuf = torch.zeros((2, B, _up4(H)), dtype=_F32, device=dev)
+        fpart = torch.empty((2, grid, _up4(B * FC)), dtype=_F32, device=dev)
+        ptrs = [gates, emb_tab, *weights, out, hbuf, fpart]
+
+        fn = lib.wavernn_generate_f32
+        fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_uint32, ctypes.c_float]
+                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        err = fn(*(_ptr(t) for t in ptrs), seed & _MASK32, float(temperature),
+                 B, T, H, K, FC, grid, units, stage_rows, smem, _stream(dev))
+        _build.check(lib, err, "wavernn launch")
+    cuda_wavernn_generate.launches += 1
+    return out

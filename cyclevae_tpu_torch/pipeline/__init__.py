@@ -1,2 +1,2 @@
-"""Recipe stage drivers (so far: the stage-6 conversion engine, batching and
-the train stage's helpers)."""
+"""Recipe stages (so far: the stage-6 conversion engine, batching, the train
+stage's helpers, and neural-vocoder synthesis)."""
