@@ -15,8 +15,10 @@ Phases, one line or more each; any failure exits non-zero:
               decoder B=10 out=50, cv encoder B=5 out=64, cyclic decoder B=5
               out=50), and K3 also at T=560; K4 (the WaveRNN sampler, hu896,
               256 classes, T=4,000 samples) at B=1 and B=4, greedy and
-              sampled, held index by index by the near-tie rule, and its
-              sampled draws against the categorical distribution they follow;
+              sampled, held index by index by the near-tie rule, with its
+              plan (grid, units per block, cluster size, f stage, shared
+              bytes), and its sampled draws against the categorical
+              distribution they follow;
   3. main     the stage-6 conversion path of the flagship hu1024 CycleVAE
               (random weights from a seed, stats baked in): 4 requests
               through ``Codec`` + ``device_decode_pair`` per dtype, with the
@@ -361,7 +363,9 @@ def phase_vocoder_kernel(dev):
     results, ok = {}, True
     for B in (1, 4):
         cond = torch.tanh(torch.randn((B, T_VOC, cfg.cond_dim), generator=gen, device=dev))
-        pl = plan(_build.load("wavernn"), B, cfg.hidden_units, cfg.n_classes, cfg.fc_dim)
+        grid, units, cluster, stage_rows, smem = plan(_build.load("wavernn"), B, cfg.hidden_units,
+                                                      cfg.n_classes, cfg.fc_dim)
+        pl = dict(grid=grid, units=units, cluster=cluster, stage_rows=stage_rows, smem=smem)
         for temp in (0.0, VOC_TEMPERATURE):
             args = (params, cfg, cond, SEED + B, temp)
             got = cuda_wavernn_generate(*args)
@@ -383,7 +387,9 @@ def phase_vocoder_kernel(dev):
             ok &= match
             first = ", ".join("none" if t < 0 else str(t) for t in steps)
             log(f"[kernels] wavernn_generate {key} H={cfg.hidden_units} K={cfg.n_classes} "
-                f"fc={cfg.fc_dim} T={T_VOC} plan={pl} first divergence per row: {first} "
+                f"fc={cfg.fc_dim} T={T_VOC} plan: grid {grid} blocks x {units} units in "
+                f"clusters of {cluster}, f stage {stage_rows}, shared {smem} bytes; "
+                f"first divergence per row: {first} "
                 f"(near-tie rule {NEAR_TIE_REL}) max_abs (decoded) {err:.3e} "
                 f"kernel={ms:.3f} ms ({ms * 1e3 / T_VOC:.2f} us/sample) plain={plain_ms:.1f} ms "
                 f"bound={bound_ms:.4f} ms ({bound_by}) {'ok' if match else 'FAIL'}")

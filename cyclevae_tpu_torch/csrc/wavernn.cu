@@ -23,47 +23,70 @@
 // (T = 99,225 samples at 22.05 kHz, B = 1, H = 896, K = 256, FC = 128) does
 // ~0.5 TFLOP (7.6 ms at the float32 FMA peak) and streams ~1.1 GB of
 // conditioning gates (0.3 ms), but every sample depends on the one before, so
-// the time is T times the latency of one step.  K1's layout (csrc/gru_ar.cu)
-// keeps that chain short, and K4 takes it over:
-//   * ONE cooperative launch runs the whole time loop; the weights are read
-//     from device memory once.
-//   * Block k owns hidden units [k*U, k*U+U) (U = 8, 112 blocks at H = 896).
-//     Each warp holds its unit's three Whh rows in registers for the whole
-//     call (H <= 1024); the block's U columns of W1 and the whole W2 (as
-//     W2^T, 128 KB at K = 256, FC = 128) sit in shared memory.
-//   * Per step a block computes its units' h_t and its partial of
-//     f = h_t . W1^T over its units, writes both to double-buffered global
-//     scratch, and meets the grid at ONE barrier.  After it, every block
-//     copies the whole h_t and the G partials of f (cp.async, all in flight),
-//     sums the partials in a fixed order (gru::sum_partials), and computes
-//     relu, the logits, the same Philox words and the same argmax.  So every
-//     block knows the next sample without a second barrier, and it is the
-//     same sample in every block because every block sums in the same order
-//     and draws the same counters: no atomics on the path.  Block 0 writes
-//     out[b, t].
-//   * The gather: each unit's finishing lanes read their three gate columns
-//     of cond_gates (device memory, streamed) and of emb_tab[idx] (256 x 3H,
-//     2.75 MB, L2-resident) right after the sample is known; the loads are
-//     in flight during the Whh dot products.
+// the time is T times the latency of one step: a chain of one exchange
+// between SMs, a 128-long dot product, a 256-way argmax, a table-row add and
+// the gate nonlinearity.  The design keeps that chain short:
+//   * ONE launch runs the whole time loop; the weights are read from device
+//     memory once.  Block k owns hidden units [k*U, k*U+U) (U = 8, 112 blocks
+//     at H = 896); each warp holds its unit's three Whh rows in registers.
+//   * The blocks form thread-block clusters of cs (8 where the card can keep
+//     them all resident, else 4, 2, 1; the grid is padded to a multiple of
+//     cs with blocks that own no units).  Inside a cluster nothing waits at
+//     a cluster barrier: a block pushes data straight into the shared memory
+//     of the block that needs it (st.async), and the receiver's mbarrier
+//     counts the bytes.  (A cluster barrier or a fence with release/acquire
+//     semantics compiles to MEMBAR.GPU plus an L1 invalidate, ~1,000 cycles.)
+//   * Per step a block pushes its partial of f = h_t . W1^T over its units
+//     to the ranks that own those f values; rank r sums its share of the cs
+//     partials in rank order and writes it to L2.  So G/cs cluster partials
+//     cross SMs (7 KB per batch row at cs = 8, not the 57 KB of 112 block
+//     partials).
+//   * Across the grid there is no barrier and no fence: every float of h_t
+//     and of the cluster partials travels in one 8-byte word with the step
+//     that wrote it (st.relaxed.gpu), so a reader checks the data itself.
+//     To keep 28k threads from polling L2 at once, one thread per block
+//     first waits on a count of the blocks that stored the step (a relaxed
+//     red per block: only a hint, the tags decide); then every thread loads
+//     its words (ld.relaxed.gpu, up to 8 16-byte loads in flight) and loads
+//     again those whose tag is old.  Double buffers by step parity suffice:
+//     a block can write step t+2's words only after every block has read
+//     step t's.  While thread 0 waits, the block draws the Philox noise of
+//     the coming sample (it depends on (seed, t, b, k) only); the
+//     conditioning gates of the next step are loaded into registers one
+//     step ahead.
+//   * The logits are split across the cluster: rank r scores classes
+//     [r*Kc, r*Kc + Kc) (its slice of W2, row-major, in shared memory), eight
+//     lanes to a class, float4 reads and a shuffle reduce, and pushes the
+//     best (score, class) of each row, as one 64-bit key, to every rank.
+//     Every block sums the NC cluster partials in the same fixed order, and
+//     every cluster holds the same W2 slices and draws the same noise, so
+//     every block reaches the same sample bit for bit, with no atomics on
+//     the value path; the largest key (ties to the lowest class, NaN above
+//     every number) is one element whatever the order of merging.
+//   * While the candidates cross the cluster, each warp runs its unit's
+//     Whh . h_t dot products (they do not depend on the sample), so after
+//     the merge only the table row (the block's (K, 3U) slice of emb_tab, in
+//     shared memory), the gate nonlinearity, h and the fc1 partial remain.
+//   * The step loop does no integer division: what depends on the thread
+//     alone is computed once.  (Measured with the profile below: a phase of
+//     a few hundred instructions takes 300-1,000 cycles, so every
+//     instruction on the chain counts.)
 //   * Offsets into cond_gates and out are size_t: B * T * 3H passes 2^31
 //     from B = 9 at T = 99,225.
-// No tensor cores and no TF32: B is 1-8 and the weights stay float32.
-// Measured on an H100 (ops/wavernn_phases.py, B = 1, 8.1 us per step): the
-// copy and sum of the fc1 partials, the logits with noise and warp argmax,
-// and the gate phase (whose gathered loads wait on the sample) take about a
-// quarter of the step each, the grid barrier an eighth.
+// No tensor cores and no TF32: B is 1-8 (B * FC <= 1,024) and the weights
+// stay float32.
+// Every block waits on data of every other, so all must be resident: the
+// launch is cooperative (it fails rather than run a grid that does not fit)
+// with a cluster dimension, and the plan checks
+// cudaOccupancyMaxActiveClusters.
 //
 // Built with -DWAVERNN_PROFILE, thread 0 of block 0 sums the SM cycles each
-// phase of a step takes (wavernn_profile_read; ops/wavernn_phases.py prints
-// them): 0 copy h and the fc1 partials and sum f, 1 logits, Gumbel noise and
-// each warp's argmax, 2 the block's argmax, 3 gate-row dot products, gates
-// and h_t, 4 wait for the block's other warps, 5 fc1 partial, 6 grid barrier.
+// phase of a step takes (wavernn_profile_read; ops/wavernn_phases.py names
+// and prints them; each PROF_MARK(i) closes phase i).
 
 #include <algorithm>
-#include <climits>
 
 #include <cooperative_groups.h>
-#include <math_constants.h>
 
 #include "gru_common.cuh"
 
@@ -72,6 +95,12 @@ namespace cg = cooperative_groups;
 namespace {
 
 using namespace gru;
+
+constexpr int kMaxCluster = 8;  // portable cluster size
+constexpr int kU = kWarps;      // hidden units per block: one warp per unit
+constexpr int kLanesPerClass = 8;
+constexpr int kClassGroups = kThreads / kLanesPerClass;
+constexpr int kPoll = 8;  // 16-byte words a thread has in flight when it polls
 
 struct Args {
   const float* gates;  // (B, T, 3H) conditioning gates, b_ih included
@@ -83,22 +112,24 @@ struct Args {
   const float* w2;     // (K, FC)
   const float* b2;     // (K)
   int* out;            // (B, T)
-  float* hbuf;         // (2, B, Hs) scratch: h_t, rows padded to Hs = 4k >= H with zeros
-  float* fpart;        // (2, G, BFs) scratch: block k's partial of f at [k]
+  // (2, XW) + 1 tagged words: per step parity the NC cluster partials of f
+  // (BFs each), then h_t (B rows of Hs); then the step count
+  unsigned long long* xbuf;
   unsigned seed;
   float temp;
-  int B, T, H, K, FC, U;
-  int Hs, BFs;         // padded row lengths (multiples of 4 floats = 16 bytes)
+  int B, T, H, K, FC, cs;
+  int Hs, FCs, Kc;     // padded lengths (multiples of 4 floats = 16 bytes)
   int stage_rows;      // f values (multiple of 4) summed per pass through smem
 };
 
 #ifdef WAVERNN_PROFILE
-__device__ unsigned long long g_prof[7];
+constexpr int kPhases = 12;
+__device__ unsigned long long g_prof[kPhases];
 #define PROF_MARK(i)                                            \
   do {                                                          \
     if (blockIdx.x == 0 && threadIdx.x == 0) {                  \
       const long long now = clock64();                          \
-      g_prof[i] += now - prof_t;                                \
+      prof_s[i] += now - prof_t;                                \
       prof_t = now;                                             \
     }                                                           \
   } while (0)
@@ -123,118 +154,212 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0, unsigned k1
   return c;
 }
 
-__device__ __forceinline__ unsigned word(uint4 r, int w) {
-  return w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w;
-}
-
 // Gumbel noise from 23 random bits, as the TPU kernel forms it
 __device__ __forceinline__ float gumbel(unsigned bits) {
   const float u = (float)(bits & 0x7fffffu) * (1.0f / 8388608.0f);
   return -logf(-logf(u + 1e-9f) + 1e-9f);
 }
 
-// (value, index) argmax step as jnp.argmax and torch.argmax take it: the
-// larger value, on a tie the lower index, and NaN above every number
-__device__ __forceinline__ void arg_max(float& v, int& i, float ov, int oi) {
-  const bool better = isnan(ov) ? (!isnan(v) || oi < i) : (ov > v || (ov == v && oi < i));
-  if (better) {
-    v = ov;
-    i = oi;
+// The argmax as jnp.argmax and torch.argmax take it (the larger score, on a
+// tie the lower class, every NaN above every number, -0 equal to +0) is the
+// largest of these keys: the score's bits made monotone in its value, over
+// the class inverted.  Key 0 lies below every (score, class).
+__device__ __forceinline__ unsigned long long arg_key(float v, int k) {
+  const unsigned u = __float_as_uint(v == 0.f ? 0.f : v);
+  const unsigned m = isnan(v) ? 0xffffffffu : (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)m << 32) | (0xffffffffu - (unsigned)k);
+}
+__device__ __forceinline__ int key_index(unsigned long long key) {
+  return (int)(0xffffffffu - (unsigned)key);
+}
+// the best of the cs candidates of a row (ranks past cs read rank cs-1
+// again, which changes no maximum, so that all loads are in flight at once)
+__device__ __forceinline__ unsigned long long best_candidate(const unsigned long long* cand, int cs) {
+  unsigned long long c[kMaxCluster];
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r) c[r] = cand[min(r, cs - 1)];
+#pragma unroll
+  for (int r = 1; r < kMaxCluster; ++r) c[0] = max(c[0], c[r]);
+  return c[0];
+}
+
+// A wait of some 30 s (which a resident grid never needs) stops the kernel
+// with an error instead of holding the card.
+__device__ __forceinline__ void spin_guard(long long start) {
+  if (clock64() - start > (1ll << 36)) __trap();
+}
+
+// ---- exchange inside a cluster: st.async into the owner's shared memory,
+// counted in bytes by the owner's mbarrier (no cluster barrier, no fence) ----
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ unsigned remote(unsigned addr, int rank) {  // same offset in rank's block
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void mbar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+// the phase's one arrival, expecting `bytes` of st.async data
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  const long long start = clock64();
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done) spin_guard(start);
+  } while (!done);
+}
+__device__ __forceinline__ void push4(unsigned dst, float4 v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void push_key(unsigned dst, unsigned long long key, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];\n" ::"r"(dst),
+               "l"(key), "r"(bar)
+               : "memory");
+}
+
+// ---- exchange across the grid: each float travels with its step tag in one
+// 8-byte word, so a reader polls the data itself (no grid barrier, no fence) ----
+__device__ __forceinline__ void store_tagged(unsigned long long* p, float v, unsigned tag) {
+  const unsigned long long w = ((unsigned long long)tag << 32) | __float_as_uint(v);
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(w) : "memory");
+}
+__device__ __forceinline__ ulonglong2 load_tagged2(const unsigned long long* p) {
+  ulonglong2 w;
+  asm volatile("ld.relaxed.gpu.global.v2.u64 {%0, %1}, [%2];\n" : "=l"(w.x), "=l"(w.y) : "l"(p) : "memory");
+  return w;
+}
+__device__ __forceinline__ void add_count(unsigned* count) {
+  asm volatile("red.relaxed.gpu.global.add.u32 [%0], 1;\n" ::"l"(count) : "memory");
+}
+__device__ __forceinline__ void wait_count(const unsigned* count, unsigned target) {
+  const long long start = clock64();
+  unsigned v;
+  for (;;) {
+    asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(count) : "memory");
+    if ((int)(v - target) >= 0) break;
+    spin_guard(start);
+  }
+}
+__device__ __forceinline__ unsigned tag_of(unsigned long long w) { return (unsigned)(w >> 32); }
+__device__ __forceinline__ float value_of(unsigned long long w) { return __uint_as_float((unsigned)w); }
+
+// gh of the warp's unit u for R batch rows from b0 (rows past B repeat row
+// B-1 and are dropped: branch-free, so the loads are batched): its three
+// Whh rows (registers) against h (shared memory), + b_hh, into gh_s
+template <int R>
+__device__ __forceinline__ void gate_dots(const float4 (&wreg)[3][kRegIters], const float* h_s,
+                                          const float* bhh_s, float* gh_s, int B, int H, int Hs,
+                                          int b0, int u, int lane) {
+  int row[R];
+#pragma unroll
+  for (int c = 0; c < R; ++c) row[c] = min(b0 + c, B - 1);
+  float sr[R] = {}, sz[R] = {}, sn[R] = {};
+#pragma unroll
+  for (int it = 0; it < kRegIters; ++it) {
+    const int i = 128 * it + 4 * lane;
+    if (i < H) {
+#pragma unroll
+      for (int c = 0; c < R; ++c) {
+        const float4 v = *reinterpret_cast<const float4*>(h_s + (size_t)row[c] * Hs + i);
+        sr[c] = dot4(wreg[0][it], v, sr[c]);
+        sz[c] = dot4(wreg[1][it], v, sz[c]);
+        sn[c] = dot4(wreg[2][it], v, sn[c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < R; ++c) {
+    const float s0 = warp_sum(sr[c]), s1 = warp_sum(sz[c]), s2 = warp_sum(sn[c]);
+    if (lane == 0 && b0 + c < B) {
+      float* gh = gh_s + (b0 + c) * 3 * kU;
+      gh[u] = s0 + bhh_s[u];
+      gh[kU + u] = s1 + bhh_s[kU + u];
+      gh[2 * kU + u] = s2 + bhh_s[2 * kU + u];
+    }
   }
 }
 
+// f values owned (summed over the cluster) by each rank: a multiple of 4
+__host__ __device__ inline int rank_share(int BFs, int cs) { return (int)up4((BFs + cs - 1) / cs); }
+
 struct Smem {  // offsets in floats; every array starts on 16 bytes
-  size_t h, stage, f, hown, bhh, w1, b1, w2t, b2, bestv, besti, idx, total_bytes;
+  size_t stage, h, f, recv, hown, bhh, w1, b1, w2, b2, emb, gh, noise, score, cand, bars,
+      total_bytes;
 };
 
-__host__ __device__ inline Smem smem_layout(int B, int H, int K, int FC, int U, int G,
+__host__ __device__ inline Smem smem_layout(int B, int H, int K, int FC, int cs, int NC,
                                             int stage_rows) {
+  const size_t FCs = up4(FC), Kc = up4((K + cs - 1) / cs), U = kU;
   Smem s;
-  s.h = 0;                                          // B*Hs     h_{t-1}
-  s.stage = s.h + (size_t)B * up4(H);               // G*rows   f partials, k-major
-  s.f = s.stage + (size_t)G * stage_rows;           // B*FC     relu(h W1^T + b1)
-  s.hown = s.f + up4((size_t)B * FC);               // B*U      own units' h (the carry)
-  s.bhh = s.hown + up4((size_t)B * U);              // 3U       own rows of b_hh
-  s.w1 = s.bhh + up4(3 * (size_t)U);                // U*FC     [u][c] = W1[c][j0+u]
-  s.b1 = s.w1 + up4((size_t)U * FC);                // FC
-  s.w2t = s.b1 + up4(FC);                           // FC*K     [c][k] = W2[k][c]
-  s.b2 = s.w2t + up4((size_t)FC * K);               // K
-  s.bestv = s.b2 + up4(K);                          // B*kWarps each warp's best score
-  s.besti = s.bestv + up4((size_t)B * kWarps);      // B*kWarps ... and its class (int)
-  s.idx = s.besti + up4((size_t)B * kWarps);        // B        the fed-back sample (int)
-  s.total_bytes = (s.idx + up4(B)) * sizeof(float);
+  s.stage = 0;                                      // NC*rows   cluster partials of f, c-major
+  s.h = s.stage + (size_t)NC * stage_rows;          // B*Hs      h_t (right after the stage)
+  s.f = s.h + (size_t)B * up4(H);                   // B*FCs     relu(h W1^T + b1)
+  s.recv = s.f + (size_t)B * FCs;                   // cs*share  the cluster's partials of this rank's f values
+  s.hown = s.recv + (size_t)cs * rank_share(B * (int)FCs, cs);  // B*U  own units' h (the carry)
+  s.bhh = s.hown + up4((size_t)B * U);              // 3U        own rows of b_hh
+  s.w1 = s.bhh + up4(3 * U);                        // U*FCs     [u][c] = W1[c][j0+u]
+  s.b1 = s.w1 + U * FCs;                            // B*FCs     b1 of each f value (0 in the padding)
+  s.w2 = s.b1 + (size_t)B * FCs;                               // Kc*FCs    [kk][c] = W2[k0+kk][c]
+  s.b2 = s.w2 + Kc * FCs;                           // Kc
+  s.emb = s.b2 + Kc;                                // K*3U      [k][g*U+u] = emb[k][g*H+j0+u]
+  s.gh = s.emb + up4((size_t)K * 3 * U);            // B*3U      own gate rows of h Whh^T + b_hh
+  s.noise = s.gh + up4((size_t)B * 3 * U);          // B*Kc      Gumbel noise of the coming sample
+  s.score = s.noise + (size_t)B * Kc;               // B*Kc      scores of the rank's classes
+  s.cand = s.score + (size_t)B * Kc;                // B*cs*2    every rank's best key of each row
+  s.bars = s.cand + up4((size_t)B * cs * 2);        // 2 mbarriers (8 bytes each)
+  s.total_bytes = (s.bars + 4) * sizeof(float);
   return s;
 }
 
-// Logits, noise and per-warp argmax of R batch rows [b0, b0+R): thread k
-// takes classes k, k+256, ... (in increasing order, so a tie keeps the lower)
-template <int R>
-__device__ void score_rows(const Args& a, const float* f_s, const float* w2t_s, const float* b2_s,
-                           float* bestv, int* besti, int b0, int tt) {
-  const int K = a.K, FC = a.FC;
+__global__ void __launch_bounds__(kThreads) wavernn_kernel(Args a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float smem[];
+  constexpr int U = kU;
+  const int B = a.B, T = a.T, H = a.H, K = a.K, FC = a.FC, cs = a.cs;
+  const int Hs = a.Hs, FCs = a.FCs, Kc = a.Kc, BFs = B * FCs;
+  const size_t H3 = 3 * (size_t)H;
+  const int NC = gridDim.x / cs, k = blockIdx.x, j0 = k * U;
+  const int rank = (int)cluster.block_rank(), cid = k / cs;
+  const int nu = max(0, min(U, H - j0));  // units this block owns (0 in padding blocks)
+  const int k0 = rank * Kc, kn = max(0, min(Kc, K - k0));  // the rank's classes
+  const int share = rank_share(BFs, cs), lo = rank * share, hi = min(BFs, lo + share);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const bool sampled = a.temp > 0.f;
   const float tdiv = fmaxf(a.temp, 1e-6f);
-  float bv[R];
-  int bi[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    bv[r] = -CUDART_INF_F;
-    bi[r] = INT_MAX;
-  }
-  for (int k = threadIdx.x; k < K; k += kThreads) {
-    float acc[R] = {};
-    for (int c = 0; c < FC; ++c) {
-      const float w = w2t_s[(size_t)c * K + k];
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = fmaf(f_s[(b0 + r) * FC + c], w, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float s = acc[r] + b2_s[k];
-      if (sampled) {
-        const uint4 bits = philox4x32_10(make_uint4((unsigned)tt, (unsigned)(b0 + r), (unsigned)k >> 2, 0u),
-                                         a.seed, 0u);
-        s = s / tdiv + gumbel(word(bits, k & 3));
-      }
-      arg_max(bv[r], bi[r], s, k);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      arg_max(bv[r], bi[r], __shfl_xor_sync(0xffffffffu, bv[r], off),
-              __shfl_xor_sync(0xffffffffu, bi[r], off));
-    if (lane == 0) {
-      bestv[(b0 + r) * kWarps + warp] = bv[r];
-      besti[(b0 + r) * kWarps + warp] = bi[r];
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) wavernn_kernel(Args a) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ __align__(16) float smem[];
-  const int B = a.B, T = a.T, H = a.H, K = a.K, FC = a.FC, U = a.U, Hs = a.Hs;
-  const size_t H3 = 3 * (size_t)H;
-  const int G = gridDim.x, k = blockIdx.x, j0 = k * U;
-  const int nu = max(0, min(U, H - j0));  // units this block owns (last block may be ragged)
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const Smem L = smem_layout(B, H, K, FC, U, G, a.stage_rows);
+  const Smem L = smem_layout(B, H, K, FC, cs, NC, a.stage_rows);
 
   float* h_s = smem + L.h;
   float* stage = smem + L.stage;
   float* f_s = smem + L.f;
+  float* recv_s = smem + L.recv;
   float* hown_s = smem + L.hown;
   float* bhh_s = smem + L.bhh;
   float* w1_s = smem + L.w1;
   float* b1_s = smem + L.b1;
-  float* w2t_s = smem + L.w2t;
+  float* w2_s = smem + L.w2;
   float* b2_s = smem + L.b2;
-  float* bestv = smem + L.bestv;
-  int* besti = reinterpret_cast<int*>(smem + L.besti);
-  int* idx_s = reinterpret_cast<int*>(smem + L.idx);
+  float* emb_s = smem + L.emb;
+  float* gh_s = smem + L.gh;
+  float* noise_s = smem + L.noise;
+  float* score_s = smem + L.score;
+  unsigned long long* cand_s = reinterpret_cast<unsigned long long*>(smem + L.cand);
+  const unsigned bar_part = smem_addr(smem + L.bars), bar_cand = bar_part + 8;
+  const unsigned part_bytes = (unsigned)(cs * max(0, hi - lo) * 4), cand_bytes = (unsigned)(cs * B * 8);
 
   // ---- weights into registers and shared memory, once per call ----
   float4 wreg[3][kRegIters];  // Whh rows g*H + j0 + warp, float4 it at 128*it + 4*lane
@@ -250,200 +375,380 @@ __global__ void __launch_bounds__(kThreads) wavernn_kernel(Args a) {
       }
     }
   }
-  for (int idx = threadIdx.x; idx < U * FC; idx += kThreads) {
-    const int u = idx / FC, c = idx % FC;
-    w1_s[idx] = u < nu ? a.w1[(size_t)c * H + j0 + u] : 0.f;
+  for (int q = threadIdx.x; q < U * FCs; q += kThreads) {
+    const int u = q / FCs, c = q % FCs;
+    w1_s[q] = u < nu && c < FC ? a.w1[(size_t)c * H + j0 + u] : 0.f;
   }
-  for (int idx = threadIdx.x; idx < FC * K; idx += kThreads) {
-    const int c = idx / K, kk = idx % K;
-    w2t_s[idx] = a.w2[(size_t)kk * FC + c];
+  for (int q = threadIdx.x; q < Kc * FCs; q += kThreads) {
+    const int kk = q / FCs, c = q % FCs;
+    w2_s[q] = kk < kn && c < FC ? a.w2[(size_t)(k0 + kk) * FC + c] : 0.f;
   }
-  for (int c = threadIdx.x; c < FC; c += kThreads) b1_s[c] = a.b1[c];
-  for (int kk = threadIdx.x; kk < K; kk += kThreads) b2_s[kk] = a.b2[kk];
-  for (int r = threadIdx.x; r < 3 * U; r += kThreads) {
-    const int g = r / U, u = r % U;
-    bhh_s[r] = u < nu ? a.bhh[g * H + j0 + u] : 0.f;
+  for (int q = threadIdx.x; q < BFs; q += kThreads) b1_s[q] = q % FCs < FC ? a.b1[q % FCs] : 0.f;
+  for (int kk = threadIdx.x; kk < Kc; kk += kThreads) b2_s[kk] = kk < kn ? a.b2[k0 + kk] : 0.f;
+  for (int q = threadIdx.x; q < 3 * U; q += kThreads) {
+    const int g = q / U, u = q % U;
+    bhh_s[q] = u < nu ? a.bhh[g * H + j0 + u] : 0.f;
   }
+  for (int q = threadIdx.x; q < K * 3 * U; q += kThreads) {
+    const int kk = q / (3 * U), g = q % (3 * U) / U, u = q % U;
+    emb_s[q] = u < nu ? a.emb[(size_t)kk * H3 + g * H + j0 + u] : 0.f;
+  }
+  for (int q = threadIdx.x; q < B * 3 * U; q += kThreads) {  // h_{-1} = 0: gh = b_hh
+    const int g = q % (3 * U) / U, u = q % U;
+    gh_s[q] = u < nu ? a.bhh[g * H + j0 + u] : 0.f;
+  }
+  for (int q = threadIdx.x; q < B * U; q += kThreads) hown_s[q] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_part);
+    mbar_init(bar_cand);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect(bar_part, part_bytes);  // phase 0 of each: step 0's data
+    mbar_expect(bar_cand, cand_bytes);
+  }
+
+  // thread q < B*U finishes unit u = q % U of row b = q / U; its conditioning
+  // gates of the coming step wait in registers
+  const int fb = threadIdx.x / U, fu = threadIdx.x % U;
+  const bool finisher = threadIdx.x < B * U && fu < nu;
+  const bool hpad = threadIdx.x < B * U && fu >= nu && j0 + fu < Hs;  // writes the row padding's 0
+  const int XW = NC * BFs + B * Hs;  // words of one step's exchange: the partials, then h
+  unsigned* count = reinterpret_cast<unsigned*>(a.xbuf + 2 * (size_t)XW);
+  float cx[3] = {0.f, 0.f, 0.f};
+  if (finisher) {
+    const float* row = a.gates + (size_t)fb * T * H3 + j0 + fu;
+#pragma unroll
+    for (int g = 0; g < 3; ++g) cx[g] = __ldg(row + g * H);
+  }
+  // the step loop's index arithmetic, once: thread q < BFs/4 owns f values
+  // [4q, 4q+4) of the block's partial (one group a thread: BFs <= 4*kThreads)
+  const int pq = 4 * threadIdx.x, pb = pq / FCs, pc = pq % FCs, powner = pq / share;
+  const bool pushes = pq < BFs;
+  const unsigned pdst = remote(smem_addr(recv_s + rank * share + (pq - powner * share)), pushes ? powner : 0);
+  const unsigned pbar = remote(bar_part, pushes ? powner : 0);
+  // the logits: group grp of 8 lanes scores (row, class) (lb, lk), then
+  // steps by kClassGroups tasks
+  const int grp = threadIdx.x / kLanesPerClass, sub = threadIdx.x % kLanesPerClass;
+  const int lb0 = grp / Kc, lk0 = grp % Kc, dlb = kClassGroups / Kc, dlk = kClassGroups % Kc;
+  cluster.sync();  // every block of the cluster runs, with its mbarriers set
 
 #ifdef WAVERNN_PROFILE
+  __shared__ long long prof_s[kPhases];  // summed here, added to g_prof at the end
+  if (threadIdx.x < kPhases) prof_s[threadIdx.x] = 0;
+  __syncthreads();
   long long prof_t = clock64();
 #endif
-  // step t computes h_t; the sample of step t-1 is drawn at the top of step
-  // t (from h_{t-1}); the pass with t == T only draws the last sample
-  for (int t = 0; t <= T; ++t) {
-    const int cur = t & 1, nxt = cur ^ 1;
-    if (t == T && k != 0) break;  // block 0 alone writes the last sample
+  for (int t = 0; t < T; ++t) {
+    const int cur = t & 1;
+    const unsigned tag = (unsigned)t + 1;  // the scratch words are 0 at launch
+    unsigned long long* xdst = a.xbuf + (size_t)cur * XW;
 
-    if (t == 0) {
-      for (int idx = threadIdx.x; idx < B * Hs; idx += kThreads) h_s[idx] = 0.f;
-      for (int idx = threadIdx.x; idx < B * U; idx += kThreads) hown_s[idx] = 0.f;
-      for (int b = threadIdx.x; b < B; b += kThreads) idx_s[b] = K / 2;
-      __syncthreads();
-    } else {
-      // ---- h_{t-1} into shared memory, f = relu(sum of the G partials + b1) ----
-      if (t < T) {
-        const float* src = a.hbuf + (size_t)cur * B * Hs;
-        for (int q = threadIdx.x; q < B * Hs / 4; q += kThreads) cp_async16(h_s + 4 * q, src + 4 * q);
-      }
-      sum_partials(a.fpart + (size_t)cur * G * a.BFs, stage, G, B * FC, a.BFs, a.stage_rows,
-                   [&](int idx, float s) { f_s[idx] = fmaxf(s + b1_s[idx % FC], 0.f); });
-      PROF_MARK(0);
-
-      // ---- the sample of step t-1: logits, noise, argmax over the block ----
-      for (int b0 = 0; b0 < B; b0 += kBatchChunk) {
-        const int R = min(kBatchChunk, B - b0);
-        if (R == 4) score_rows<4>(a, f_s, w2t_s, b2_s, bestv, besti, b0, t - 1);
-        else if (R == 3) score_rows<3>(a, f_s, w2t_s, b2_s, bestv, besti, b0, t - 1);
-        else if (R == 2) score_rows<2>(a, f_s, w2t_s, b2_s, bestv, besti, b0, t - 1);
-        else score_rows<1>(a, f_s, w2t_s, b2_s, bestv, besti, b0, t - 1);
-      }
-      PROF_MARK(1);
-      __syncthreads();
-      for (int b = threadIdx.x; b < B; b += kThreads) {
-        float v = bestv[b * kWarps];
-        int i = besti[b * kWarps];
-        for (int w = 1; w < kWarps; ++w) arg_max(v, i, bestv[b * kWarps + w], besti[b * kWarps + w]);
-        idx_s[b] = i;
-        if (k == 0) a.out[(size_t)b * T + (t - 1)] = i;
-      }
-      __syncthreads();
-      PROF_MARK(2);
-      if (t == T) break;
+    // ---- the sample of step t-1 (the best of the cluster's candidates), gates and h_t ----
+    if (t > 0 && (finisher || threadIdx.x == 0)) {
+      mbar_wait(bar_cand, (t - 1) & 1);
+      if (threadIdx.x == 0) mbar_expect(bar_cand, cand_bytes);  // the next phase: step t's
     }
-
-    // ---- a warp per own unit: its 3 gate rows, then its gates and h_t ----
-    if (warp < nu) {
-      const int u = warp, j = j0 + u;
-      for (int b0 = 0; b0 < B; b0 += kBatchChunk) {
-        const int bl = b0 + lane;  // the batch row that lanes 0-3 finish
-        const bool finisher = lane < kBatchChunk && bl < B;
-        float gxr = 0.f, gxz = 0.f, gxn = 0.f;
-        if (finisher) {  // streamed gates + gathered table row: in flight during the dot products
-          const float* cg_row = a.gates + ((size_t)bl * T + t) * H3 + j;
-          const float* e_row = a.emb + (size_t)idx_s[bl] * H3 + j;
-          gxr = cg_row[0] + e_row[0];
-          gxz = cg_row[H] + e_row[H];
-          gxn = cg_row[2 * H] + e_row[2 * H];
-        }
-        // rows past B repeat row B-1 and are dropped: branch-free, so the
-        // compiler batches the loads instead of waiting out each one
-        int row[kBatchChunk];
-#pragma unroll
-        for (int c = 0; c < kBatchChunk; ++c) row[c] = min(b0 + c, B - 1);
-        float sr[kBatchChunk] = {}, sz[kBatchChunk] = {}, sn[kBatchChunk] = {};
-#pragma unroll
-        for (int it = 0; it < kRegIters; ++it) {
-          const int i = 128 * it + 4 * lane;
-          if (i < H) {
-#pragma unroll
-            for (int c = 0; c < kBatchChunk; ++c) {
-              const float4 v = *reinterpret_cast<const float4*>(h_s + (size_t)row[c] * Hs + i);
-              sr[c] = dot4(wreg[0][it], v, sr[c]);
-              sz[c] = dot4(wreg[1][it], v, sz[c]);
-              sn[c] = dot4(wreg[2][it], v, sn[c]);
-            }
-          }
-        }
-        float tr = 0.f, tz = 0.f, tn = 0.f;
-#pragma unroll
-        for (int c = 0; c < kBatchChunk; ++c) {  // butterfly: every lane gets every sum
-          const float s0 = warp_sum(sr[c]), s1 = warp_sum(sz[c]), s2 = warp_sum(sn[c]);
-          if (lane == c) {
-            tr = s0;
-            tz = s1;
-            tn = s2;
-          }
-        }
-        if (finisher) {
-          const float rg = sigmoid_f(gxr + (tr + bhh_s[u]));
-          const float zg = sigmoid_f(gxz + (tz + bhh_s[U + u]));
-          const float ng = tanhf(gxn + rg * (tn + bhh_s[2 * U + u]));
-          float* own = hown_s + bl * U + u;
-          const float hnew = (1.f - zg) * ng + zg * *own;
-          *own = hnew;
-          __stcg(a.hbuf + (size_t)nxt * B * Hs + (size_t)bl * Hs + j, hnew);
-        }
+    PROF_MARK(0);
+    if (finisher) {
+      int idx = K / 2;
+      if (t > 0) {
+        idx = key_index(best_candidate(cand_s + fb * cs, cs));
+        if (k == 0 && fu == 0) a.out[(size_t)fb * T + (t - 1)] = idx;
       }
+      const float* e = emb_s + (size_t)idx * 3 * U;
+      const float* gh = gh_s + fb * 3 * U;
+      const float rg = sigmoid_f((cx[0] + e[fu]) + gh[fu]);
+      const float zg = sigmoid_f((cx[1] + e[U + fu]) + gh[U + fu]);
+      const float ng = tanhf((cx[2] + e[2 * U + fu]) + rg * gh[2 * U + fu]);
+      float* own = hown_s + threadIdx.x;
+      const float hnew = (1.f - zg) * ng + zg * *own;
+      *own = hnew;
+      store_tagged(xdst + NC * BFs + (size_t)fb * Hs + j0 + fu, hnew, tag);
+    } else if (hpad) {
+      store_tagged(xdst + NC * BFs + (size_t)fb * Hs + j0 + fu, 0.f, tag);
     }
-    PROF_MARK(3);
     __syncthreads();
+    PROF_MARK(1);
+
+    // ---- this block's partial of f = h_t . W1^T, 4 values to a thread, pushed to their rank ----
+    if (pushes) {
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);  // units past nu have h = 0 and W1 = 0
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float hv = hown_s[pb * U + u];
+        const float4 w = load4(w1_s + u * FCs + pc);
+        s = make_float4(fmaf(hv, w.x, s.x), fmaf(hv, w.y, s.y), fmaf(hv, w.z, s.z), fmaf(hv, w.w, s.w));
+      }
+      push4(pdst, s, pbar);
+    }
+    PROF_MARK(2);
+
+    // ---- this rank's f values: the cluster's cs partials in rank order, stored with the tag ----
+    mbar_wait(bar_part, cur);
+    if (threadIdx.x == 0) mbar_expect(bar_part, part_bytes);  // the next phase: step t+1's
+    PROF_MARK(3);
+    for (int q = threadIdx.x; q < hi - lo; q += kThreads) {
+      float v[kMaxCluster];  // ranks past cs read rank cs-1 (all loads in flight) and add 0
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r) v[r] = recv_s[min(r, cs - 1) * share + q];
+      float s = v[0];
+#pragma unroll
+      for (int r = 1; r < kMaxCluster; ++r) s += r < cs ? v[r] : 0.f;
+      store_tagged(xdst + (size_t)cid * BFs + lo + q, s, tag);
+    }
+    if (finisher && t + 1 < T) {  // the next step's conditioning gates, in flight from here
+      const float* row = a.gates + ((size_t)fb * T + t + 1) * H3 + j0 + fu;
+#pragma unroll
+      for (int g = 0; g < 3; ++g) cx[g] = __ldg(row + g * H);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) add_count(count);  // a hint: the tags decide
     PROF_MARK(4);
 
-    // ---- this block's partial of f = h_t . W1^T over its units ----
-    float* part = a.fpart + ((size_t)nxt * G + k) * a.BFs;
-    for (int idx = threadIdx.x; idx < B * FC; idx += kThreads) {
-      const int b = idx / FC, c = idx % FC;
-      float s = 0.f;
-      for (int u = 0; u < nu; ++u) s = fmaf(hown_s[b * U + u], w1_s[u * FC + c], s);
-      __stcg(part + idx, s);
+    // ---- the noise of the coming sample (it depends on (seed, t, b, k) only),
+    // drawn while thread 0 waits for every block to have stored this step ----
+    if (sampled) {
+      for (int q = kThreads - 1 - threadIdx.x; q < B * Kc / 4; q += kThreads) {
+        const int b = q / (Kc / 4), kk = 4 * (q % (Kc / 4));
+        const uint4 bits = philox4x32_10(
+            make_uint4((unsigned)t, (unsigned)b, (unsigned)(k0 + kk) >> 2, 0u), a.seed, 0u);
+        float* g = noise_s + b * Kc + kk;
+        g[0] = gumbel(bits.x);
+        g[1] = gumbel(bits.y);
+        g[2] = gumbel(bits.z);
+        g[3] = gumbel(bits.w);
+      }
     }
+    if (threadIdx.x == 0) wait_count(count, (unsigned)gridDim.x * tag);
+    __syncthreads();
     PROF_MARK(5);
-    grid.sync();
-    PROF_MARK(6);
+
+    // ---- the NC cluster partials of f and h_t, polled until they carry the tag ----
+    const unsigned long long* xsrc = xdst;
+    for (int r0 = 0; r0 < BFs; r0 += a.stage_rows) {
+      const int n = min(a.stage_rows, BFs - r0), n2 = n / 2;
+      const int np = NC * n2, nh = r0 == 0 ? B * Hs / 2 : 0;  // word pairs of partials, of h
+      for (int base = 0; base < np + nh; base += kPoll * kThreads) {
+        // pair i = base + threadIdx.x + j * kThreads: partials (c, rp) = divmod(i, n2)
+        // while i < np, then h pair i - np; offsets in words of xsrc and floats
+        // of stage (h_s follows it).  With one pass (n == BFs) both layouts are
+        // the exchange's own: pair i is word 2i and float 2i.
+        int src[kPoll], dst[kPoll];
+        unsigned ready = 0;  // bit j: pair j needs no further load
+#pragma unroll
+        for (int j = 0; j < kPoll; ++j) {
+          const int i = base + threadIdx.x + j * kThreads;
+          if (i >= np + nh) {
+            src[j] = dst[j] = 0;
+            ready |= 1u << j;
+          } else if (n == BFs) {
+            src[j] = dst[j] = 2 * i;
+          } else if (i < np) {
+            src[j] = (i / n2) * BFs + r0 + 2 * (i % n2);
+            dst[j] = (i / n2) * n + 2 * (i % n2);
+          } else {
+            src[j] = NC * BFs + 2 * (i - np);
+            dst[j] = NC * a.stage_rows + 2 * (i - np);
+          }
+        }
+        ulonglong2 w[kPoll];
+        const long long start = clock64();
+        for (;;) {
+#pragma unroll
+          for (int j = 0; j < kPoll; ++j)
+            if (!(ready >> j & 1)) w[j] = load_tagged2(xsrc + src[j]);
+#pragma unroll
+          for (int j = 0; j < kPoll; ++j) {
+            if (!(ready >> j & 1) && tag_of(w[j].x) == tag && tag_of(w[j].y) == tag) {
+              ready |= 1u << j;
+              *reinterpret_cast<float2*>(stage + dst[j]) = make_float2(value_of(w[j].x), value_of(w[j].y));
+            }
+          }
+          if (ready == (1u << kPoll) - 1) break;
+          spin_guard(start);
+        }
+      }
+      PROF_MARK(6);
+      __syncthreads();
+#pragma unroll 1
+      for (int r = threadIdx.x; r < n; r += kThreads) {  // the NC partials in a fixed order
+        float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+        int c = 0;
+#pragma unroll 4
+        for (; c + 4 <= NC; c += 4) {
+          s0 += stage[(size_t)c * n + r];
+          s1 += stage[(size_t)(c + 1) * n + r];
+          s2 += stage[(size_t)(c + 2) * n + r];
+          s3 += stage[(size_t)(c + 3) * n + r];
+        }
+#pragma unroll 1
+        for (; c < NC; ++c) s0 += stage[(size_t)c * n + r];
+        // padding values: partials of zero W1 columns, +0, and b1 0 there
+        f_s[r0 + r] = fmaxf((s0 + s1) + (s2 + s3) + b1_s[r0 + r], 0.f);
+      }
+      __syncthreads();  // the stage is refilled by the next pass; f_s before the logits
+    }
+    PROF_MARK(7);
+
+    // ---- the rank's logits: eight lanes to a (row, class) ----
+    for (int base = 0, b = lb0, kk = lk0; base < B * Kc; base += kClassGroups) {
+      const bool live = b < B && kk < kn;
+      float acc = 0.f;
+      if (live) {
+#pragma unroll 4
+        for (int c = 4 * sub; c < FCs; c += 4 * kLanesPerClass)
+          acc = dot4(load4(w2_s + (size_t)kk * FCs + c), load4(f_s + (size_t)b * FCs + c), acc);
+      }
+#pragma unroll
+      for (int off = kLanesPerClass / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (live && sub == 0) {
+        float s = acc + b2_s[kk];
+        if (sampled) s = s / tdiv + noise_s[b * Kc + kk];
+        score_s[b * Kc + kk] = s;
+      }
+      b += dlb;
+      kk += dlk;
+      if (kk >= Kc) {
+        kk -= Kc;
+        ++b;
+      }
+    }
+    __syncthreads();
+    PROF_MARK(8);
+
+    // ---- the rank's best (score, class) of each row, pushed to every rank of the cluster ----
+    for (int b = warp; b < B; b += kWarps) {
+      unsigned long long key = 0;  // below every (score, class)
+      for (int kk = lane; kk < kn; kk += 32) key = max(key, arg_key(score_s[b * Kc + kk], k0 + kk));
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) key = max(key, __shfl_xor_sync(0xffffffffu, key, off));
+      PROF_MARK(9);
+      if (lane < cs) push_key(remote(smem_addr(cand_s + b * cs + rank), lane), key, remote(bar_cand, lane));
+    }
+    PROF_MARK(10);
+
+    // ---- while the candidates cross the cluster: gh = h_t . Whh^T + b_hh ----
+    if (warp < nu && t + 1 < T) {
+      for (int b0 = 0; b0 < B; b0 += kBatchChunk) {
+        if (B - b0 == 1) gate_dots<1>(wreg, h_s, bhh_s, gh_s, B, H, Hs, b0, warp, lane);
+        else gate_dots<kBatchChunk>(wreg, h_s, bhh_s, gh_s, B, H, Hs, b0, warp, lane);
+      }
+    }
+    __syncthreads();  // gh_s before the finishers; h_s read before it is refilled
+    PROF_MARK(11);
   }
+
+  // ---- the last sample; no block leaves while st.async data is still due to it ----
+  mbar_wait(bar_cand, (T - 1) & 1);
+  if (k == 0) {
+    for (int b = threadIdx.x; b < B; b += kThreads)
+      a.out[(size_t)b * T + (T - 1)] = key_index(best_candidate(cand_s + b * cs, cs));
+  }
+  cluster.sync();
+#ifdef WAVERNN_PROFILE
+  if (blockIdx.x == 0 && threadIdx.x < kPhases) g_prof[threadIdx.x] += prof_s[threadIdx.x];
+#endif
 }
 
-int plan(int B, int H, int K, int FC, int* grid, int* units, int* stage_rows, int* smem) {
+cudaLaunchConfig_t launch_config(int grid, int smem, cudaLaunchAttribute* attrs, int cs,
+                                 bool cooperative, cudaStream_t stream) {
+  cudaLaunchConfig_t c = {};
+  c.gridDim = dim3(grid);
+  c.blockDim = dim3(kThreads);
+  c.dynamicSmemBytes = (size_t)smem;
+  c.stream = stream;
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = cs;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
+  c.attrs = attrs;
+  c.numAttrs = cooperative ? 2 : 1;
+  return c;
+}
+
+int plan(int B, int H, int K, int FC, int* grid, int* units, int* cluster, int* stage_rows,
+         int* smem) {
   if (B < 1 || H < 1 || K < 1 || FC < 1 || H > 128 * kRegIters) return cudaErrorInvalidValue;
   int sms = 0, optin = 0;
   cudaError_t e = device_facts(&sms, &optin);
   if (e != cudaSuccess) return e;
-  // U = 8: one warp per unit and every warp busy (more blocks would not
-  // shorten the gate phase, only add partials to copy and sum); the f stage
-  // takes what shared memory is left, up to all B*FC values
-  const int U = std::min(kWarps, H), G = (H + U - 1) / U;
-  const size_t base = smem_layout(B, H, K, FC, U, G, 0).total_bytes;
-  const size_t row_bytes = (size_t)G * sizeof(float);
-  if (base + 4 * row_bytes > (size_t)optin) return cudaErrorInvalidConfiguration;  // W2 or h too large
-  const int rows = (int)std::min(up4((size_t)B * FC), (optin - base) / row_bytes / 4 * 4);
-  const size_t s = smem_layout(B, H, K, FC, U, G, rows).total_bytes;
-  bool fits = false;
-  e = co_resident(wavernn_kernel, s, sms, G, &fits);
-  if (e != cudaSuccess) return e;
-  if (!fits) return cudaErrorCooperativeLaunchTooLarge;
-  *grid = G;
-  *units = U;
-  *stage_rows = rows;
-  *smem = (int)s;
-  return cudaSuccess;
+  // U = 8: one warp per unit and every warp busy; a finishing thread per
+  // (row, unit), so B*U <= kThreads
+  const int U = kU, G = (H + U - 1) / U;
+  if ((long long)B * U > kThreads || (long long)B * up4(FC) > 4 * kThreads) return cudaErrorInvalidValue;
+  // the largest cluster whose grid stays resident; the f stage takes what
+  // shared memory is left, up to all B*FC values
+  for (int cs = kMaxCluster; cs >= 1; cs /= 2) {
+    const int Gp = (G + cs - 1) / cs * cs, NC = Gp / cs;
+    const size_t base = smem_layout(B, H, K, FC, cs, NC, 0).total_bytes;
+    const size_t row_bytes = (size_t)NC * sizeof(float);
+    if (base + 4 * row_bytes > (size_t)optin) continue;
+    const int rows = (int)std::min(up4((size_t)B * up4(FC)), (optin - base) / row_bytes / 4 * 4);
+    const size_t s = smem_layout(B, H, K, FC, cs, NC, rows).total_bytes;
+    e = cudaFuncSetAttribute(wavernn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s);
+    if (e != cudaSuccess) return e;
+    cudaLaunchAttribute attrs[2];
+    const cudaLaunchConfig_t c = launch_config(Gp, (int)s, attrs, cs, false, nullptr);
+    int active = 0;
+    e = cudaOccupancyMaxActiveClusters(&active, wavernn_kernel, &c);
+    if (e != cudaSuccess) return e;
+    if (active < NC) continue;
+    *grid = Gp;
+    *units = U;
+    *cluster = cs;
+    *stage_rows = rows;
+    *smem = (int)s;
+    return cudaSuccess;
+  }
+  return cudaErrorCooperativeLaunchTooLarge;  // W2's slice, h or the grid does not fit
 }
 
 }  // namespace
 
 extern "C" {
 
-// blocks, units per block, f-stage rows and dynamic shared bytes for one call
-int wavernn_plan(int B, int H, int K, int FC, int* grid, int* units, int* stage_rows, int* smem) {
-  return plan(B, H, K, FC, grid, units, stage_rows, smem);
+// blocks (a multiple of the cluster size), units per block, cluster size,
+// f-stage rows and dynamic shared bytes for one call
+int wavernn_plan(int B, int H, int K, int FC, int* grid, int* units, int* cluster,
+                 int* stage_rows, int* smem) {
+  return plan(B, H, K, FC, grid, units, cluster, stage_rows, smem);
 }
 
-// hbuf: (2, B, Hs) floats, zeroed (its padding is read); fpart: (2, grid,
-// BFs) floats; Hs and BFs being H and B*FC rounded up to multiples of 4
+// xbuf: 2 * (grid / cluster * B * FCs + B * Hs) + 1 8-byte words, zeroed
+// (a word holds a float and the step that wrote it); Hs and FCs being H and
+// FC rounded up to multiples of 4
 int wavernn_generate_f32(const void* gates, const void* emb, const void* whh, const void* bhh,
                          const void* w1, const void* b1, const void* w2, const void* b2, void* out,
-                         void* hbuf, void* fpart, unsigned seed, float temp, int B, int T, int H,
-                         int K, int FC, int grid, int units, int stage_rows, int smem,
+                         void* xbuf, unsigned seed, float temp, int B, int T, int H,
+                         int K, int FC, int grid, int units, int cluster, int stage_rows, int smem,
                          void* stream) {
-  if (B < 1 || T < 1 || H < 1 || K < 1 || FC < 1 || units < 1 || units > kWarps ||
-      H > 128 * kRegIters || stage_rows < 4 || stage_rows % 4 || (long long)grid * units < H)
+  if (B < 1 || T < 1 || H < 1 || K < 1 || FC < 1 || units != kU ||
+      (long long)B * units > kThreads || (long long)B * up4(FC) > 4 * kThreads || H > 128 * kRegIters || stage_rows < 4 ||
+      stage_rows % 4 || cluster < 1 || cluster > kMaxCluster || grid % cluster ||
+      (long long)grid * units < H)
     return cudaErrorInvalidValue;
-  Args a{static_cast<const float*>(gates), static_cast<const float*>(emb),
-         static_cast<const float*>(whh),   static_cast<const float*>(bhh),
-         static_cast<const float*>(w1),    static_cast<const float*>(b1),
-         static_cast<const float*>(w2),    static_cast<const float*>(b2),
-         static_cast<int*>(out),           static_cast<float*>(hbuf),
-         static_cast<float*>(fpart),       seed,
-         temp,                             B,
-         T,                                H,
-         K,                                FC,
-         units,                            (int)up4(H),
-         (int)up4((size_t)B * FC),         stage_rows};
+  Args a{static_cast<const float*>(gates),
+         static_cast<const float*>(emb),
+         static_cast<const float*>(whh),
+         static_cast<const float*>(bhh),
+         static_cast<const float*>(w1),
+         static_cast<const float*>(b1),
+         static_cast<const float*>(w2),
+         static_cast<const float*>(b2),
+         static_cast<int*>(out),
+         static_cast<unsigned long long*>(xbuf),
+         seed,
+         temp,
+         B, T, H, K, FC, cluster,
+         (int)up4(H), (int)up4(FC), (int)up4((K + cluster - 1) / cluster),
+         stage_rows};
   cudaError_t e = cudaFuncSetAttribute(wavernn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(wavernn_kernel), dim3(grid),
-                                  dim3(kThreads), args, (size_t)smem,
-                                  static_cast<cudaStream_t>(stream));
+  cudaLaunchAttribute attrs[2];
+  const cudaLaunchConfig_t c =
+      launch_config(grid, smem, attrs, cluster, true, static_cast<cudaStream_t>(stream));
+  e = cudaLaunchKernelEx(&c, wavernn_kernel, a);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -452,7 +757,7 @@ int wavernn_generate_f32(const void* gates, const void* emb, const void* whh, co
 int wavernn_profile_read(unsigned long long* out) {
   cudaError_t e = cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
   if (e != cudaSuccess) return e;
-  const unsigned long long zero[7] = {};
+  const unsigned long long zero[kPhases] = {};
   return cudaMemcpyToSymbol(g_prof, zero, sizeof(g_prof));
 }
 #endif

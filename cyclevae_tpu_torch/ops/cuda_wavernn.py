@@ -168,13 +168,13 @@ def first_divergence(got: torch.Tensor, want: torch.Tensor, gap: torch.Tensor,
 
 
 def plan(lib: ctypes.CDLL, batch: int, hidden: int, n_classes: int,
-         fc_dim: int) -> Tuple[int, int, int, int]:
-    """(blocks, hidden units per block, fc1 values summed per pass, dynamic
-    shared bytes) of one K4 launch on the current CUDA device; raises when
-    the shapes cannot run there."""
-    vals = [ctypes.c_int() for _ in range(4)]
+         fc_dim: int) -> Tuple[int, int, int, int, int]:
+    """(blocks, hidden units per block, blocks per cluster, fc1 values summed
+    per pass, dynamic shared bytes) of one K4 launch on the current CUDA
+    device; raises when the shapes cannot run there."""
+    vals = [ctypes.c_int() for _ in range(5)]
     fn = lib.wavernn_plan
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 5
     fn.restype = ctypes.c_int
     err = fn(batch, hidden, n_classes, fc_dim, *(ctypes.byref(v) for v in vals))
     _build.check(lib, err, f"wavernn_plan for B={batch} H={hidden} K={n_classes} fc={fc_dim}")
@@ -222,20 +222,21 @@ def launch(lib: ctypes.CDLL, params: Dict, cfg: WaveRNNConfig, cond: torch.Tenso
         weights = [f(params["gru"]["w_hh"]), f(params["gru"]["b_hh"]),
                    f(params["fc1"]["w"]), f(params["fc1"]["b"]),
                    f(params["fc2"]["w"]), f(params["fc2"]["b"])]
-        grid, units, stage_rows, smem = plan(lib, B, H, K, FC)
+        grid, units, cluster, stage_rows, smem = plan(lib, B, H, K, FC)
         out = torch.empty((B, T), dtype=torch.int32, device=dev)
-        # scratch rows padded to 16 bytes for the kernel's cp.async copies;
-        # h's padding is read by the dot products and must stay 0
-        hbuf = torch.zeros((2, B, _up4(H)), dtype=_F32, device=dev)
-        fpart = torch.empty((2, grid, _up4(B * FC)), dtype=_F32, device=dev)
-        ptrs = [gates, emb_tab, *weights, out, hbuf, fpart]
+        # exchange scratch, 0 at launch: per step parity the cluster partials
+        # of f and h, each 8-byte word a float and the step that wrote it
+        # (rows padded to 16 bytes); then the count of blocks' stores
+        words = (grid // cluster) * B * _up4(FC) + B * _up4(H)
+        xbuf = torch.zeros((2 * words + 1,), dtype=torch.int64, device=dev)
+        ptrs = [gates, emb_tab, *weights, out, xbuf]
 
         fn = lib.wavernn_generate_f32
         fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_uint32, ctypes.c_float]
-                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         err = fn(*(_ptr(t) for t in ptrs), seed & _MASK32, float(temperature),
-                 B, T, H, K, FC, grid, units, stage_rows, smem, _stream(dev))
+                 B, T, H, K, FC, grid, units, cluster, stage_rows, smem, _stream(dev))
         _build.check(lib, err, "wavernn launch")
     cuda_wavernn_generate.launches += 1
     return out

@@ -6,7 +6,9 @@ Builds ``csrc/wavernn.cu`` a second time with ``-DWAVERNN_PROFILE`` (thread 0
 of block 0 sums the SM cycles of each phase of every step), runs it on random
 weights at the flagship width (``WaveRNNConfig`` defaults: H=896, 256
 classes, fc 128), and prints each phase's cycles per step and its share,
-beside the per-sample time of the normal build from CUDA events.
+beside the per-sample time of the normal build from CUDA events, the plan
+(grid, units per block, cluster size, f-stage rows, shared bytes) and the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -14,16 +16,18 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import subprocess
 
 import torch
 
 from . import _build
-from .cuda_wavernn import cuda_wavernn_generate, launch
+from .cuda_wavernn import cuda_wavernn_generate, launch, plan
 from ..models.wavernn import WaveRNNConfig, init_wavernn
 
-PHASES = ("copy h and fc1 partials, sum f", "logits, noise, warp argmax", "block argmax",
-          "gate-row dot products, gates and h_t", "wait for the block", "fc1 partial",
-          "grid barrier")
+PHASES = ("wait for the cluster's candidates", "merge, gates and h_t", "fc1 partial, pushed",
+          "wait for the cluster's partials", "cluster sum stored with its tag, step count",
+          "noise, wait for the step count", "poll h and the cluster partials", "sum f", "logits",
+          "rank argmax", "candidates pushed", "Whh dot products")
 
 
 def main() -> None:
@@ -66,10 +70,15 @@ def main() -> None:
     print(json.dumps({
         "shape": dict(B=args.B, T=args.T, H=cfg.hidden_units, K=cfg.n_classes, fc=cfg.fc_dim),
         "temperature": args.temperature,
+        "plan": dict(zip(("grid", "units", "cluster", "stage_rows", "smem"),
+                         plan(prof, args.B, cfg.hidden_units, cfg.n_classes, cfg.fc_dim))),
         "us_per_sample": us_sample,
         "cycles_per_step": total,
         "phases": {p: {"cycles": c, "share": c / total} for p, c in zip(PHASES, per_step)},
-        "card": torch.cuda.get_device_name(0)}))
+        "card": torch.cuda.get_device_name(0),
+        "card_line": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60).stdout.strip()}))
 
 
 if __name__ == "__main__":

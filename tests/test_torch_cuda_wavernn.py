@@ -18,9 +18,11 @@ import pytest
 import torch
 
 from cyclevae_tpu_torch.models.wavernn import WaveRNNConfig, init_wavernn
+from cyclevae_tpu_torch.ops import _build
 from cyclevae_tpu_torch.ops.cuda_wavernn import (
     cuda_wavernn_generate,
     first_divergence,
+    plan,
     wavernn_generate_reference,
 )
 
@@ -143,3 +145,75 @@ def test_counter_counts_launches_and_bad_input_raises(cuda_device):
         cuda_wavernn_generate(init_wavernn(torch.Generator(device=cuda_device), wide), wide,
                               cond, seed=0)
     assert cuda_wavernn_generate.launches == before + 2
+
+
+def _hold(params, cfg, cond, seed, temperature):
+    got = cuda_wavernn_generate(params, cfg, cond, seed=seed, temperature=temperature)
+    want, gap, scale = wavernn_generate_reference(params, cfg, cond, seed=seed,
+                                                  temperature=temperature, margins=True)
+    torch.cuda.synchronize()
+    assert got.shape == cond.shape[:2]
+    steps, ok = first_divergence(got, want, gap, scale)
+    assert ok, steps
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [42, 900])
+def test_grid_padded_to_whole_clusters(cuda_device, H):
+    """The grid is padded to whole clusters with blocks that own no units:
+    H=900 gives 113 blocks of 8 units (the last with 4), H=42 gives 6 (the
+    last with 2, and a row padded from 42 to 44 floats)."""
+    B = 2
+    grid, units, cluster, _, _ = plan(_build.load("wavernn"), B, H, 256, 128)
+    blocks = -(-H // units)
+    assert grid % cluster == 0 and blocks <= grid < blocks + cluster
+    params, cfg, cond = _problem(cuda_device, B, 300, H, 256, seed=H)
+    for temperature in (0.0, 0.8):
+        _hold(params, cfg, cond, 19, temperature)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [896, 1024])
+def test_batch_of_eight(cuda_device, H):
+    """B=8 at the recipe's width and at H=1024, where the plan may take
+    clusters smaller than 8 and sum f in passes through shared memory."""
+    params, cfg, cond = _problem(cuda_device, 8, 300, H, 256, seed=H + 8)
+    _hold(params, cfg, cond, 29, 0.8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 2])
+def test_shortest_runs(cuda_device, T):
+    """T=1 and T=2: the gates prefetched one step ahead stop at the last
+    step, and the last sample is drawn after the loop."""
+    params, cfg, cond = _problem(cuda_device, 3, T, 896, 256, seed=T)
+    for temperature in (0.0, 0.8):
+        _hold(params, cfg, cond, 31, temperature)
+
+
+@pytest.mark.cuda
+def test_two_launches_are_identical(cuda_device):
+    """No atomics on the value path: the same call gives the same indices."""
+    params, cfg, cond = _problem(cuda_device, 4, 2000, 896, 256, seed=12)
+    first = cuda_wavernn_generate(params, cfg, cond, seed=3, temperature=0.8)
+    second = cuda_wavernn_generate(params, cfg, cond, seed=3, temperature=0.8)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_exact_tie_across_cluster_ranks_goes_to_the_lowest_class(cuda_device):
+    """Greedy, fc2.w = 0: the logits are b2, with an exact tie of the
+    largest value at classes 40, 100 and 250, which lie in different
+    ranks' class slices (32 classes a rank in clusters of 8): every sample
+    is 40, as torch.argmax takes it."""
+    params, cfg, cond = _problem(cuda_device, 2, 200, 896, 256, seed=13)
+    _, _, cluster, _, _ = plan(_build.load("wavernn"), 2, 896, 256, 128)
+    params["fc2"]["w"].zero_()
+    params["fc2"]["b"].uniform_(-1.0, 1.0)
+    params["fc2"]["b"][[40, 100, 250]] = 2.0
+    if cluster > 1:
+        per = 256 // cluster
+        assert len({40 // per, 100 // per, 250 // per}) > 1
+    got = _hold(params, cfg, cond, 0, 0.0)
+    assert bool((got == 40).all())
