@@ -13,7 +13,9 @@ Phases, one line or more each; any failure exits non-zero:
               T=1120: encoder B=2 out=64, decoder B=3 out=50); K2 and K3 at the
               training step's four calls (T=80: encoder B=5 out=64, fused 2B
               decoder B=10 out=50, cv encoder B=5 out=64, cyclic decoder B=5
-              out=50), and K3 also at T=560; K4 (the WaveRNN sampler, hu896,
+              out=50), and K3 also at T=560, each K2 and K3 row with its plan
+              (grid, units per block, shared bytes; K3 also its dh partials
+              per pass and its cluster size, 1); K4 (the WaveRNN sampler, hu896,
               256 classes, T=4,000 samples) at B=1 and B=4, greedy and
               sampled, held index by index by the near-tie rule, with its
               plan (grid, units per block, cluster size, f stage, shared
@@ -271,9 +273,9 @@ def phase_train_kernels(dev):
     """K2 and K3 against their plain versions at the train step's shapes."""
     from cyclevae_tpu_torch.models.layers import init_dense, init_gru_stack
     from cyclevae_tpu_torch.ops import _build
-    from cyclevae_tpu_torch.ops.cuda_gru import (cuda_gru_ar_bwd, cuda_gru_ar_train,
-                                                 gru_ar_bwd_reference, gru_ar_train_reference,
-                                                 plan, plan_bwd)
+    from cyclevae_tpu_torch.ops.cuda_gru import (BWD_PLAN_KEYS, cuda_gru_ar_bwd,
+                                                 cuda_gru_ar_train, gru_ar_bwd_reference,
+                                                 gru_ar_train_reference, plan, plan_bwd)
     from cyclevae_tpu_torch.ops.gru_scan import precompute_input_gates
 
     results = {}
@@ -309,12 +311,16 @@ def phase_train_kernels(dev):
                     args = (layer, proj, gx, y0, h0, mask, wdt)
                     fn, ref, tol = cuda_gru_ar_train, gru_ar_train_reference, F32_ATOL
                     bound_ms, bound_by = gru_ar_train_bound_ms(B, T, out, wdt)
-                    pl = plan(_build.load("gru_ar"), B, H, out, wdt, train=True)
+                    pl = dict(zip(("grid", "units", "stage_rows", "smem"),
+                                  plan(_build.load("gru_ar"), B, H, out, wdt, train=True)))
                 else:
                     args = bwd_args
                     fn, ref, tol = cuda_gru_ar_bwd, gru_ar_bwd_reference, GRAD_SCALE_TOL
                     bound_ms, bound_by = gru_ar_bwd_bound_ms(B, T, out, wdt)
-                    pl = plan_bwd(_build.load("gru_ar_bwd"), B, H, out, wdt)
+                    # K3 runs without thread-block clusters: its exchange
+                    # crosses L2 (see csrc/gru_ar_bwd.cu)
+                    pl = dict(zip(BWD_PLAN_KEYS, plan_bwd(_build.load("gru_ar_bwd"), B, H, out,
+                                                          wdt)), cluster=1)
                 got, want = fn(*args), ref(*args)
                 torch.cuda.synchronize()
                 err, rl2, cos, ok = _match(got, want, wdt, tol)
@@ -325,7 +331,8 @@ def phase_train_kernels(dev):
                                     max_abs_err=err, rel_l2=rl2, cosine=cos, ms=ms,
                                     us_per_step=ms * 1e3 / T, plain_ms=plain_ms,
                                     bound_ms=bound_ms, bound_by=bound_by, plan=pl, ok=ok)
-                log(f"[kernels] {key} B={B} H={H} out={out} plan={pl} max_abs={err:.3e} "
+                plan_txt = " ".join(f"{k}={v}" for k, v in pl.items())
+                log(f"[kernels] {key} B={B} H={H} out={out} plan: {plan_txt}; max_abs={err:.3e} "
                     f"rel_l2={rl2:.3e} cos={cos:.6f} kernel={ms:.3f} ms "
                     f"({ms * 1e3 / T:.2f} us/step) plain={plain_ms:.1f} ms "
                     f"bound={bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}")

@@ -88,6 +88,7 @@
 
 #include <cooperative_groups.h>
 
+#include "exchange.cuh"
 #include "gru_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -182,81 +183,6 @@ __device__ __forceinline__ unsigned long long best_candidate(const unsigned long
   for (int r = 1; r < kMaxCluster; ++r) c[0] = max(c[0], c[r]);
   return c[0];
 }
-
-// A wait of some 30 s (which a resident grid never needs) stops the kernel
-// with an error instead of holding the card.
-__device__ __forceinline__ void spin_guard(long long start) {
-  if (clock64() - start > (1ll << 36)) __trap();
-}
-
-// ---- exchange inside a cluster: st.async into the owner's shared memory,
-// counted in bytes by the owner's mbarrier (no cluster barrier, no fence) ----
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ unsigned remote(unsigned addr, int rank) {  // same offset in rank's block
-  unsigned r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ void mbar_init(unsigned bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-}
-// the phase's one arrival, expecting `bytes` of st.async data
-__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  const long long start = clock64();
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done) spin_guard(start);
-  } while (!done);
-}
-__device__ __forceinline__ void push4(unsigned dst, float4 v, unsigned bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
-      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void push_key(unsigned dst, unsigned long long key, unsigned bar) {
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];\n" ::"r"(dst),
-               "l"(key), "r"(bar)
-               : "memory");
-}
-
-// ---- exchange across the grid: each float travels with its step tag in one
-// 8-byte word, so a reader polls the data itself (no grid barrier, no fence) ----
-__device__ __forceinline__ void store_tagged(unsigned long long* p, float v, unsigned tag) {
-  const unsigned long long w = ((unsigned long long)tag << 32) | __float_as_uint(v);
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(w) : "memory");
-}
-__device__ __forceinline__ ulonglong2 load_tagged2(const unsigned long long* p) {
-  ulonglong2 w;
-  asm volatile("ld.relaxed.gpu.global.v2.u64 {%0, %1}, [%2];\n" : "=l"(w.x), "=l"(w.y) : "l"(p) : "memory");
-  return w;
-}
-__device__ __forceinline__ void add_count(unsigned* count) {
-  asm volatile("red.relaxed.gpu.global.add.u32 [%0], 1;\n" ::"l"(count) : "memory");
-}
-__device__ __forceinline__ void wait_count(const unsigned* count, unsigned target) {
-  const long long start = clock64();
-  unsigned v;
-  for (;;) {
-    asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(count) : "memory");
-    if ((int)(v - target) >= 0) break;
-    spin_guard(start);
-  }
-}
-__device__ __forceinline__ unsigned tag_of(unsigned long long w) { return (unsigned)(w >> 32); }
-__device__ __forceinline__ float value_of(unsigned long long w) { return __uint_as_float((unsigned)w); }
 
 // gh of the warp's unit u for R batch rows from b0 (rows past B repeat row
 // B-1 and are dropped: branch-free, so the loads are batched): its three

@@ -154,10 +154,6 @@ def _up4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
-def _up8(n: int) -> int:
-    return (n + 7) // 8 * 8
-
-
 def _stream(dev: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
@@ -182,12 +178,22 @@ def plan(lib: ctypes.CDLL, batch: int, hidden: int, out_dim: int,
     return _plan(lib, entry, 4, batch, hidden, out_dim, weight_dtype)
 
 
+# what plan_bwd returns, and the phases of one reversed step that a
+# -DGRU_AR_BWD_PROFILE build of csrc/gru_ar_bwd.cu times (ops/gru_ar_bwd_phases.py)
+BWD_PLAN_KEYS = ("grid", "units", "stage_kk", "smem")
+BWD_PHASES = ("wait for the partials (hop 1)", "dy slice summed and stored with its tag",
+              "dh partials copied and summed", "wait for the tagged dy (hop 2)",
+              "dy_tot . Wout and the cotangent algebra", "dh partial product, written",
+              "dy partial product, written; arrival",
+              "gate recompute of all steps before the loop (per step)")
+
+
 def plan_bwd(lib: ctypes.CDLL, batch: int, hidden: int, out_dim: int,
-             weight_dtype: torch.dtype) -> Tuple[int, int, int, int, int]:
-    """(blocks, hidden units per block, dgh columns per copy, dy values summed
-    per pass, dynamic shared bytes) of one K3 launch; raises when the shapes
-    cannot run on the current CUDA device."""
-    return _plan(lib, "gru_ar_bwd_plan", 5, batch, hidden, out_dim, weight_dtype)
+             weight_dtype: torch.dtype) -> Tuple[int, int, int, int]:
+    """(blocks, hidden units per block, dh partials copied per pass, dynamic
+    shared bytes) of one K3 launch; raises when the shapes cannot run on the
+    current CUDA device."""
+    return _plan(lib, "gru_ar_bwd_plan", 4, batch, hidden, out_dim, weight_dtype)
 
 
 def cuda_gru_ar(gru_layer: Dict, out_proj: Dict, gates_x: torch.Tensor,
@@ -341,22 +347,31 @@ def launch_bwd(lib: ctypes.CDLL, wout: torch.Tensor, whh: torch.Tensor, wy: torc
         f = lambda a: a.to(_F32).contiguous()
         ins = [f(d_trj), w(gates_x), w(y_prev), w(h_prev), w(out_mask), w(wout),
                w(whh), w(wy), f(bhh), f(d_hT), f(d_yT)]
-        grid, units, chunk, stage_rows, smem = plan_bwd(lib, B, hidden, out_dim, wdt)
+        grid, units, stage_kk, smem = plan_bwd(lib, B, hidden, out_dim, wdt)
         dgx = torch.empty((B, T, 3 * hidden), dtype=wdt, device=dev)
         dgh = torch.empty((B, T, 3 * hidden), dtype=wdt, device=dev)
         dy_tot = torch.empty((B, T, out_dim), dtype=_F32, device=dev)
         dh0 = torch.empty((B, hidden), dtype=_F32, device=dev)
         dy0 = torch.empty((B, out_dim), dtype=_F32, device=dev)
-        # scratch rows padded to 16 bytes for cp.async; the dgh pad stays 0
-        dghbuf = torch.zeros((2, B, _up8(3 * hidden)), dtype=wdt, device=dev)
-        dypart = torch.empty((2, grid, _up4(B * out_dim)), dtype=_F32, device=dev)
-        ptrs = ins + [dgx, dgh, dy_tot, dh0, dy0, dghbuf, dypart]
+        # scratch: the six recomputed values (r, z, n, ghn, h_prev, mask) of
+        # every (block, row, step, unit); then, double-
+        # buffered by step parity, each block's partials of dh laid out by the
+        # block that owns the columns (units padded to 4), each block's
+        # partial of dy (slices of S values), and dy as step-tagged 8-byte
+        # words followed by the two step counts (zeroed)
+        slice_ = _up4(-(-B * out_dim // grid))
+        gbuf = torch.empty((grid, 6, B, T, _up4(units)), dtype=_F32, device=dev)
+        pbuf = torch.empty((2, grid, grid, B, _up4(units)), dtype=_F32, device=dev)
+        dbuf = torch.empty((2, grid, grid * slice_), dtype=_F32, device=dev)
+        words = (B * out_dim + 1) // 2 * 2
+        ybuf = torch.zeros(2 * words + 1, dtype=torch.int64, device=dev)
+        ptrs = ins + [dgx, dgh, dy_tot, dh0, dy0, gbuf, pbuf, dbuf, ybuf]
 
         fn = getattr(lib, f"gru_ar_bwd_{_WEIGHT_DTYPES[wdt]}")
-        fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        err = fn(*(_ptr(t) for t in ptrs), B, T, hidden, out_dim, grid, units, chunk,
-                 stage_rows, smem, _stream(dev))
+        err = fn(*(_ptr(t) for t in ptrs), B, T, hidden, out_dim, grid, units, stage_kk,
+                 smem, _stream(dev))
         _build.check(lib, err, "gru_ar_bwd launch")
     cuda_gru_ar_bwd.launches += 1
     return dgx, dgh, dy_tot, dh0, dy0

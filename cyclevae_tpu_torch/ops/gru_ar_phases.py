@@ -6,7 +6,7 @@ Builds ``csrc/gru_ar.cu`` a second time with ``-DGRU_AR_PROFILE`` (thread 0 of
 block 0 sums the SM cycles of each phase of every frame), runs it on random
 weights at the given shape in float32 and bf16, and prints each phase's
 cycles per frame and its share, beside the per-frame time of the normal build
-from CUDA events.
+from CUDA events and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import subprocess
 
 import torch
 
@@ -76,7 +77,10 @@ def main() -> None:
             "cycles_per_frame": total,
             "phases": {p: {"cycles": c, "share": c / total}
                        for p, c in zip(PHASES, per_frame)},
-            "card": torch.cuda.get_device_name(0)}))
+            "card": torch.cuda.get_device_name(0),
+            "card_line": subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                capture_output=True, text=True, timeout=60).stdout.strip()}))
 
 
 if __name__ == "__main__":

@@ -9,8 +9,9 @@ then once timed and once under ``torch.profiler``, and prints one JSON line:
 the step's wall time (host clock, ending in a host copy of the metrics; the
 unprofiled one), the device's busy time in the profiled step (the sum of its
 kernels' and copies' times: one stream, so they do not overlap), the idle
-share of the unprofiled wall time, the AR-GRU kernels' time, and the kernels
-taking the most device time.
+share of the unprofiled wall time, the AR-GRU kernels' time (K3, the backward
+scan, and K2, the training forward, apart), and the kernels taking the most
+device time.
 """
 
 from __future__ import annotations
@@ -79,6 +80,7 @@ def main() -> None:
             by_name[e.name] = (calls + 1, us + e.time_range.elapsed_us())
     busy_us = sum(us for _, us in by_name.values())
     gru_us = sum(us for name, (_, us) in by_name.items() if "gru_ar" in name)
+    k3_us = sum(us for name, (_, us) in by_name.items() if "gru_ar_bwd" in name)
     top = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)[:TOP]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "dtype": args.dtype, "hidden": cfg.hidden_units,
@@ -86,7 +88,8 @@ def main() -> None:
         "profiled_step_ms": profiled_us / 1e3,
         "real_frames_per_s": sum(FLENS) / (wall_us / 1e6),
         "device_busy_ms": busy_us / 1e3, "device_idle_share": 1.0 - busy_us / wall_us,
-        "ar_gru_kernels_ms": gru_us / 1e3,
+        "ar_gru_kernels_ms": gru_us / 1e3, "k3_ms": k3_us / 1e3, "k2_ms": (gru_us - k3_us) / 1e3,
+        "rest_ms": (busy_us - gru_us) / 1e3,
         "top_kernels": [{"name": name[:90], "calls": calls, "ms": us / 1e3}
                         for name, (calls, us) in top]}))
 

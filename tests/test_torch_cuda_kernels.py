@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from cyclevae_tpu_torch.models.layers import init_dense, init_gru_stack
+from cyclevae_tpu_torch.ops import _build
 from cyclevae_tpu_torch.ops.cuda_gru import (
     cuda_gru_ar,
     cuda_gru_ar_bwd,
@@ -18,6 +19,7 @@ from cyclevae_tpu_torch.ops.cuda_gru import (
     gru_ar_bwd_reference,
     gru_ar_reference,
     gru_ar_train_reference,
+    plan_bwd,
 )
 from cyclevae_tpu_torch.ops.gru_ar_vjp import gru_ar_fused
 from cyclevae_tpu_torch.ops.gru_scan import precompute_input_gates
@@ -144,9 +146,23 @@ def _bwd_args(dev, B, T, H, out, wdt, seed=2):
             _mask(dev, B, T, H, seed), r(B, H), r(B, out))
 
 
+# K3 also at the shapes its exchange has edges: the step-parity buffers (T=1,
+# 2 and odd T, at the flagship width), a width whose units do not fill a
+# multiple of 4 (H=900: 7 units per block, the dh partials written one
+# column at a time; h_prev copied without cp.async in bf16) and a small odd
+# width (rows padded, no Whh rows in registers)
+BWD_SHAPES = TRAIN_SHAPES + [
+    (2, 1, 1024, 50),    # one step at the flagship width
+    (5, 2, 1024, 64),    # two steps: both parities once
+    (10, 7, 1024, 50),   # the fused 2B decoder call, odd T
+    (4, 9, 900, 50),     # 7 units per block, ragged last block
+    (2, 5, 37, 9),       # small odd width, B*out odd
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,T,H,out", TRAIN_SHAPES)
+@pytest.mark.parametrize("B,T,H,out", BWD_SHAPES)
 def test_bwd_kernel_matches_plain(cuda_device, wdt, B, T, H, out):
     args = _bwd_args(cuda_device, B, T, H, out, wdt)
     got = cuda_gru_ar_bwd(*args)
@@ -154,6 +170,52 @@ def test_bwd_kernel_matches_plain(cuda_device, wdt, B, T, H, out):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         _assert_matches(g, w, wdt, scale_tol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_two_launches_bitwise_equal(cuda_device, wdt):
+    """Every sum of K3 runs in a fixed order and no atomic touches a value."""
+    args = _bwd_args(cuda_device, 10, 40, 1024, 50, wdt)
+    first = [g.clone() for g in cuda_gru_ar_bwd(*args)]
+    second = cuda_gru_ar_bwd(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(second, first):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_largest_batch_and_one_above(cuda_device, wdt):
+    """At the flagship width K3 runs the largest B its plan accepts (the dh
+    partials then sum in several passes through shared memory), and the
+    next B raises rather than run."""
+    lib = _build.load("gru_ar_bwd")
+
+    def fits(B):
+        try:
+            plan_bwd(lib, B, 1024, 50, wdt)
+        except RuntimeError:
+            return False
+        return True
+
+    lo, hi = 1, 4096   # fits(lo); not fits(hi)
+    assert fits(lo) and not fits(hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    largest = lo
+    assert largest >= 16
+    args = _bwd_args(cuda_device, largest, 3, 1024, 50, wdt)
+    got = cuda_gru_ar_bwd(*args)
+    want = gru_ar_bwd_reference(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _assert_matches(g, w, wdt, scale_tol=2e-4)
+    before = cuda_gru_ar_bwd.launches
+    with pytest.raises(RuntimeError):
+        cuda_gru_ar_bwd(*_bwd_args(cuda_device, largest + 1, 3, 1024, 50, wdt))
+    assert cuda_gru_ar_bwd.launches == before
 
 
 @pytest.mark.cuda
