@@ -13,14 +13,15 @@ Phases, one line or more each; any failure exits non-zero:
               T=1120: encoder B=2 out=64, decoder B=3 out=50); K2 and K3 at the
               training step's four calls (T=80: encoder B=5 out=64, fused 2B
               decoder B=10 out=50, cv encoder B=5 out=64, cyclic decoder B=5
-              out=50), and K3 also at T=560, each K2 and K3 row with its plan
-              (grid, units per block, shared bytes; K3 also its dh partials
-              per pass and its cluster size, 1); K4 (the WaveRNN sampler, hu896,
-              256 classes, T=4,000 samples) at B=1 and B=4, greedy and
-              sampled, held index by index by the near-tie rule, with its
-              plan (grid, units per block, cluster size, f stage, shared
-              bytes), and its sampled draws against the categorical
-              distribution they follow;
+              out=50), and K3 also at T=560, each K1, K2 and K3 row with its
+              plan (K1, K2: grid, units per block, y values each block sums,
+              lanes per (row, unit) in the gate phase, shared bytes; K3: grid,
+              units, dh partials per pass, shared bytes, cluster size 1);
+              K4 (the WaveRNN sampler, hu896, 256 classes, T=4,000 samples)
+              at B=1 and B=4, greedy and sampled, held index by index by the
+              near-tie rule, with its plan (grid, units per block, cluster
+              size, f stage, shared bytes), and its sampled draws against the
+              categorical distribution they follow;
   3. main     the stage-6 conversion path of the flagship hu1024 CycleVAE
               (random weights from a seed, stats baked in): 4 requests
               through ``Codec`` + ``device_decode_pair`` per dtype, with the
@@ -210,7 +211,7 @@ def phase_kernels(dev):
     """K1 against its plain version at the conversion path's shapes."""
     from cyclevae_tpu_torch.models.layers import init_dense, init_gru_stack
     from cyclevae_tpu_torch.ops import _build
-    from cyclevae_tpu_torch.ops.cuda_gru import cuda_gru_ar, gru_ar_reference, plan
+    from cyclevae_tpu_torch.ops.cuda_gru import PLAN_KEYS, cuda_gru_ar, gru_ar_reference, plan
     from cyclevae_tpu_torch.ops.gru_scan import precompute_input_gates
 
     results = {}
@@ -237,14 +238,15 @@ def phase_kernels(dev):
             ms = cuda_ms(lambda: cuda_gru_ar(*args), iters=10, warmup=2)
             plain_ms = cuda_ms(lambda: gru_ar_reference(*args), iters=2)
             bound_ms, bound_by = gru_ar_bound_ms(B, T_KERNEL, out, wdt)
-            grid, units, stage_rows, smem = plan(_build.load("gru_ar"), B, H, out, wdt)
+            pl = dict(zip(PLAN_KEYS, plan(_build.load("gru_ar"), B, H, out, wdt)))
             key = f"{call}/{str(wdt).split('.')[-1]}"
             results[key] = dict(B=B, T=T_KERNEL, out=out, max_abs_err=err,
                                 rel_l2=rl2, cosine=cos, ms=ms,
                                 us_per_frame=ms * 1e3 / T_KERNEL, plain_ms=plain_ms,
-                                bound_ms=bound_ms, bound_by=bound_by, ok=ok)
+                                bound_ms=bound_ms, bound_by=bound_by, plan=pl, ok=ok)
+            plan_txt = " ".join(f"{k}={v}" for k, v in pl.items())
             log(f"[kernels] gru_ar {key} B={B} T={T_KERNEL} H={H} out={out} "
-                f"grid={grid}x{units} stage={stage_rows} smem={smem} max_abs={err:.3e} "
+                f"plan: {plan_txt}; max_abs={err:.3e} "
                 f"rel_l2={rl2:.3e} cos={cos:.6f} kernel={ms:.3f} ms "
                 f"({ms * 1e3 / T_KERNEL:.2f} us/frame) plain={plain_ms:.1f} ms "
                 f"bound={bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}")
@@ -273,7 +275,7 @@ def phase_train_kernels(dev):
     """K2 and K3 against their plain versions at the train step's shapes."""
     from cyclevae_tpu_torch.models.layers import init_dense, init_gru_stack
     from cyclevae_tpu_torch.ops import _build
-    from cyclevae_tpu_torch.ops.cuda_gru import (BWD_PLAN_KEYS, cuda_gru_ar_bwd,
+    from cyclevae_tpu_torch.ops.cuda_gru import (BWD_PLAN_KEYS, PLAN_KEYS, cuda_gru_ar_bwd,
                                                  cuda_gru_ar_train, gru_ar_bwd_reference,
                                                  gru_ar_train_reference, plan, plan_bwd)
     from cyclevae_tpu_torch.ops.gru_scan import precompute_input_gates
@@ -311,7 +313,7 @@ def phase_train_kernels(dev):
                     args = (layer, proj, gx, y0, h0, mask, wdt)
                     fn, ref, tol = cuda_gru_ar_train, gru_ar_train_reference, F32_ATOL
                     bound_ms, bound_by = gru_ar_train_bound_ms(B, T, out, wdt)
-                    pl = dict(zip(("grid", "units", "stage_rows", "smem"),
+                    pl = dict(zip(PLAN_KEYS,
                                   plan(_build.load("gru_ar"), B, H, out, wdt, train=True)))
                 else:
                     args = bwd_args

@@ -1,5 +1,6 @@
 // Exchange between blocks that run at once (a cooperative launch), shared by
-// wavernn.cu (K4) and gru_ar_bwd.cu (K3): spins that cannot hang the card;
+// wavernn.cu (K4), gru_ar_bwd.cu (K3) and gru_ar.cu (K1, K2): spins that
+// cannot hang the card;
 // pushes into another block's shared memory inside a thread-block cluster,
 // counted in bytes by the receiver's mbarrier; step-tagged 8-byte words and
 // step counts across the grid.  sm_90a.

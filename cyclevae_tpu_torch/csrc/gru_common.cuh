@@ -66,39 +66,6 @@ __host__ __device__ inline bool whh_in_regs(int H, int U) {
   return H % 4 == 0 && H <= 128 * kRegIters && U <= kWarps;
 }
 
-// The G block partials of n values (block kk's at part[kk * ns], ns a
-// multiple of 4) summed in a fixed order (deterministic, no atomics), in
-// passes of stage_rows values through shared memory (k-major there, so the
-// sums read it without bank conflicts); emit(idx, sum) for each of the n.
-template <typename Emit>
-__device__ void sum_partials(const float* __restrict__ part, float* stage, int G, int n, int ns,
-                             int stage_rows, Emit emit) {
-  for (int r0 = 0; r0 < n; r0 += stage_rows) {
-    const int rows = min(stage_rows, n - r0);
-    const int rows4 = (rows + 3) / 4 * 4;  // stays inside the padded ns
-    const int per_k = rows4 / 4;
-    for (int q = threadIdx.x; q < G * per_k; q += kThreads) {
-      const int kk = q / per_k, c = q % per_k;
-      cp_async16(stage + (size_t)kk * rows4 + 4 * c, part + (size_t)kk * ns + r0 + 4 * c);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    for (int r = threadIdx.x; r < rows; r += kThreads) {
-      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-      int kk = 0;
-      for (; kk + 4 <= G; kk += 4) {
-        s0 += stage[(size_t)kk * rows4 + r];
-        s1 += stage[(size_t)(kk + 1) * rows4 + r];
-        s2 += stage[(size_t)(kk + 2) * rows4 + r];
-        s3 += stage[(size_t)(kk + 3) * rows4 + r];
-      }
-      for (; kk < G; ++kk) s0 += stage[(size_t)kk * rows4 + r];
-      emit(r0 + r, (s0 + s1) + (s2 + s3));
-    }
-    __syncthreads();  // the stage is refilled by the next pass
-  }
-}
-
 // Device facts a plan needs: SM count, opt-in shared memory per block, and
 // whether cooperative launches are supported.
 inline cudaError_t device_facts(int* sms, int* optin) {

@@ -158,24 +158,65 @@ def _stream(dev: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
+def _entry(lib: ctypes.CDLL, name: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point ``name`` of ``lib``, its argument types set once."""
+    key = (id(lib), name)
+    fn = _ENTRIES.get(key)
+    if fn is None:
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _ENTRIES[key] = fn
+    return fn
+
+
+_ENTRIES: Dict[Tuple[int, str], ctypes._CFuncPtr] = {}
+
+
 def _plan(lib: ctypes.CDLL, entry: str, n_out: int, batch: int, hidden: int,
           out_dim: int, weight_dtype: torch.dtype) -> Tuple[int, ...]:
     vals = [ctypes.c_int() for _ in range(n_out)]
-    fn = getattr(lib, f"{entry}_{_WEIGHT_DTYPES[weight_dtype]}")
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * n_out
-    fn.restype = ctypes.c_int
+    fn = _entry(lib, f"{entry}_{_WEIGHT_DTYPES[weight_dtype]}",
+                [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * n_out)
     err = fn(batch, hidden, out_dim, *(ctypes.byref(v) for v in vals))
     _build.check(lib, err, f"{entry} for B={batch} H={hidden} out={out_dim}")
     return tuple(v.value for v in vals)
 
 
+# plans already made, per (library, entry, device index, B, H, out, weight
+# dtype): a plan queries the device and the occupancy of each candidate grid
+_PLANS: Dict[Tuple, Tuple[int, ...]] = {}
+
+
+def _cached_plan(lib: ctypes.CDLL, entry: str, n_out: int, batch: int, hidden: int,
+                 out_dim: int, weight_dtype: torch.dtype, device: Optional[int]) -> Tuple[int, ...]:
+    if device is None:
+        device = torch.cuda.current_device()
+    key = (id(lib), entry, device, batch, hidden, out_dim, weight_dtype)
+    got = _PLANS.get(key)
+    if got is None:
+        got = _PLANS[key] = _plan(lib, entry, n_out, batch, hidden, out_dim, weight_dtype)
+    return got
+
+
+# what plan returns, and the phases of one frame that a -DGRU_AR_PROFILE build
+# of csrc/gru_ar.cu times (ops/gru_ar_phases.py)
+PLAN_KEYS = ("grid", "units", "slice", "lanes", "smem")
+PHASES = ("wait for the frame count (hop 1)", "y slice summed and stored with its tag; h copied",
+          "Whh product", "wait for the tagged y (hop 2)", "Wy product and gates",
+          "y partial, written", "arrival")
+
+
 def plan(lib: ctypes.CDLL, batch: int, hidden: int, out_dim: int,
-         weight_dtype: torch.dtype, train: bool = False) -> Tuple[int, int, int, int]:
-    """(blocks, hidden units per block, y rows summed per pass, dynamic
-    shared bytes) of one K1 (or, ``train``, K2) launch on the current CUDA
-    device; raises when the shapes cannot run there."""
+         weight_dtype: torch.dtype, train: bool = False,
+         device: Optional[int] = None) -> Tuple[int, int, int, int, int]:
+    """(blocks, hidden units per block, y values each block sums, lanes per
+    (row, unit) in the gate phase, dynamic shared bytes) of one K1 (or,
+    ``train``, K2) launch on CUDA device ``device`` (the current one by
+    default); raises when the shapes cannot run there.  Made once per shape
+    and device."""
     entry = "gru_ar_train_plan" if train else "gru_ar_plan"
-    return _plan(lib, entry, 4, batch, hidden, out_dim, weight_dtype)
+    return _cached_plan(lib, entry, 5, batch, hidden, out_dim, weight_dtype, device)
 
 
 # what plan_bwd returns, and the phases of one reversed step that a
@@ -189,11 +230,12 @@ BWD_PHASES = ("wait for the partials (hop 1)", "dy slice summed and stored with 
 
 
 def plan_bwd(lib: ctypes.CDLL, batch: int, hidden: int, out_dim: int,
-             weight_dtype: torch.dtype) -> Tuple[int, int, int, int]:
+             weight_dtype: torch.dtype, device: Optional[int] = None) -> Tuple[int, int, int, int]:
     """(blocks, hidden units per block, dh partials copied per pass, dynamic
-    shared bytes) of one K3 launch; raises when the shapes cannot run on the
-    current CUDA device."""
-    return _plan(lib, "gru_ar_bwd_plan", 4, batch, hidden, out_dim, weight_dtype)
+    shared bytes) of one K3 launch; raises when the shapes cannot run on CUDA
+    device ``device`` (the current one by default).  Made once per shape and
+    device."""
+    return _cached_plan(lib, "gru_ar_bwd_plan", 4, batch, hidden, out_dim, weight_dtype, device)
 
 
 def cuda_gru_ar(gru_layer: Dict, out_proj: Dict, gates_x: torch.Tensor,
@@ -269,13 +311,21 @@ def launch(lib: ctypes.CDLL, gru_layer: Dict, out_proj: Dict,
         gx = gates_x.to(weight_dtype).contiguous()
         y0c = y0.to(_F32).contiguous()
         h0c = h0.to(_F32).contiguous()
-        grid, units, stage_rows, smem = plan(lib, B, hidden, out_dim, weight_dtype, train)
+        grid, units, slice_, lanes, smem = plan(lib, B, hidden, out_dim, weight_dtype, train,
+                                                dev.index)
         trj = torch.empty((B, T, out_dim), dtype=_F32, device=dev)
         y_last = torch.empty((B, out_dim), dtype=_F32, device=dev)
         h_last = torch.empty((B, hidden), dtype=_F32, device=dev)
-        # scratch rows padded to 16 bytes for the kernel's cp.async copies
-        hbuf = torch.empty((2, B, _up4(hidden)), dtype=_F32, device=dev)
-        ypart = torch.empty((2, grid, _up4(B * out_dim)), dtype=_F32, device=dev)
+        # scratch, double-buffered by frame parity: h_t at the weight dtype,
+        # rows padded to 16 bytes for the kernel's cp.async copies; each
+        # block's partial of y laid out by the block that sums each slice;
+        # y as frame-tagged 8-byte words (rows of out padded to 4), then the
+        # frame count on its own 128-byte line (zeroed)
+        per16 = 16 // torch.empty((), dtype=weight_dtype).element_size()
+        hbuf = torch.empty((2, B, -(-hidden // per16) * per16), dtype=weight_dtype, device=dev)
+        ypart = torch.empty((2, grid, grid, slice_), dtype=_F32, device=dev)
+        words = -(-2 * B * _up4(out_dim) // 16) * 16
+        ybuf = torch.zeros(words + 16, dtype=torch.int64, device=dev)
         ptrs = [gx, wy, whh, bhh, wout, bout, y0c, h0c]
         if train:
             mask = out_mask.to(weight_dtype).contiguous()
@@ -283,14 +333,13 @@ def launch(lib: ctypes.CDLL, gru_layer: Dict, out_proj: Dict,
             ptrs += [mask, trj, y_last, h_last, h_seq]
         else:
             ptrs += [trj, y_last, h_last]
-        ptrs += [hbuf, ypart]
+        ptrs += [hbuf, ypart, ybuf]
 
-        name = "gru_ar_train" if train else "gru_ar"
-        fn = getattr(lib, f"{name}_{_WEIGHT_DTYPES[weight_dtype]}")
-        fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        err = fn(*(_ptr(t) for t in ptrs), B, T, hidden, out_dim, grid, units,
-                 stage_rows, smem, _stream(dev))
+        name = f"{'gru_ar_train' if train else 'gru_ar'}_{_WEIGHT_DTYPES[weight_dtype]}"
+        fn = _entry(lib, name, [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 9
+                    + [ctypes.c_void_p])
+        err = fn(*(_ptr(t) for t in ptrs), B, T, hidden, out_dim, grid, units, slice_, lanes,
+                 smem, _stream(dev))
         _build.check(lib, err, f"{name} launch")
     if train:
         cuda_gru_ar_train.launches += 1
@@ -347,7 +396,7 @@ def launch_bwd(lib: ctypes.CDLL, wout: torch.Tensor, whh: torch.Tensor, wy: torc
         f = lambda a: a.to(_F32).contiguous()
         ins = [f(d_trj), w(gates_x), w(y_prev), w(h_prev), w(out_mask), w(wout),
                w(whh), w(wy), f(bhh), f(d_hT), f(d_yT)]
-        grid, units, stage_kk, smem = plan_bwd(lib, B, hidden, out_dim, wdt)
+        grid, units, stage_kk, smem = plan_bwd(lib, B, hidden, out_dim, wdt, dev.index)
         dgx = torch.empty((B, T, 3 * hidden), dtype=wdt, device=dev)
         dgh = torch.empty((B, T, 3 * hidden), dtype=wdt, device=dev)
         dy_tot = torch.empty((B, T, out_dim), dtype=_F32, device=dev)
@@ -367,9 +416,8 @@ def launch_bwd(lib: ctypes.CDLL, wout: torch.Tensor, whh: torch.Tensor, wy: torc
         ybuf = torch.zeros(2 * words + 1, dtype=torch.int64, device=dev)
         ptrs = ins + [dgx, dgh, dy_tot, dh0, dy0, gbuf, pbuf, dbuf, ybuf]
 
-        fn = getattr(lib, f"gru_ar_bwd_{_WEIGHT_DTYPES[wdt]}")
-        fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        fn = _entry(lib, f"gru_ar_bwd_{_WEIGHT_DTYPES[wdt]}",
+                    [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         err = fn(*(_ptr(t) for t in ptrs), B, T, hidden, out_dim, grid, units, stage_kk,
                  smem, _stream(dev))
         _build.check(lib, err, "gru_ar_bwd launch")

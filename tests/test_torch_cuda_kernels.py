@@ -19,6 +19,7 @@ from cyclevae_tpu_torch.ops.cuda_gru import (
     gru_ar_bwd_reference,
     gru_ar_reference,
     gru_ar_train_reference,
+    plan,
     plan_bwd,
 )
 from cyclevae_tpu_torch.ops.gru_ar_vjp import gru_ar_fused
@@ -216,6 +217,87 @@ def test_bwd_kernel_largest_batch_and_one_above(cuda_device, wdt):
     with pytest.raises(RuntimeError):
         cuda_gru_ar_bwd(*_bwd_args(cuda_device, largest + 1, 3, 1024, 50, wdt))
     assert cuda_gru_ar_bwd.launches == before
+
+
+def _forward(dev, train, B, T, H, out, wdt):
+    """K1 (or, ``train``, K2) and its plain version on one problem."""
+    layer, proj, gx, y0, h0 = _problem(dev, B, T, H, out)
+    if train:
+        args = (layer, proj, gx, y0, h0, _mask(dev, B, T, H), wdt)
+        return cuda_gru_ar_train, gru_ar_train_reference, args
+    return cuda_gru_ar, gru_ar_reference, (layer, proj, gx, y0, h0, wdt)
+
+
+# K1 and K2 at the shapes where their exchange has edges: one and two frames
+# (each parity once), K1's conversion call (1120 frames: many parity and tag
+# wraps), B*out below the grid (most blocks own no y slice), odd T with a
+# ragged last block
+FWD_EDGE_SHAPES = [
+    (False, 3, 1, 1024, 50), (True, 3, 1, 1024, 50),
+    (False, 2, 2, 1024, 64), (True, 5, 2, 1024, 64),
+    (False, 3, 1120, 1024, 50),
+    (False, 1, 9, 1024, 8), (True, 1, 9, 1024, 8),
+    (False, 4, 7, 1030, 50), (True, 10, 7, 1030, 50),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("train,B,T,H,out", FWD_EDGE_SHAPES)
+def test_forward_kernel_exchange_edges(cuda_device, wdt, train, B, T, H, out):
+    fn, ref, args = _forward(cuda_device, train, B, T, H, out, wdt)
+    got, want = fn(*args), ref(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _assert_matches(g, w, wdt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("train", [False, True])
+def test_forward_kernel_two_launches_bitwise_equal(cuda_device, wdt, train):
+    """Every sum of K1 and K2 runs in a fixed order and no atomic touches a
+    value."""
+    fn, _, args = _forward(cuda_device, train, 10 if train else 3, 40, 1024, 50, wdt)
+    first = [g.clone() for g in fn(*args)]
+    second = fn(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(second, first):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("train", [False, True])
+def test_forward_kernel_largest_batch_and_one_above(cuda_device, wdt, train):
+    """At the flagship width K1 and K2 run the largest B their plan accepts
+    (several passes of the gate phase over the (row, unit) pairs), and the
+    next B raises rather than run."""
+    lib = _build.load("gru_ar")
+
+    def fits(B):
+        try:
+            plan(lib, B, 1024, 50, wdt, train)
+        except RuntimeError:
+            return False
+        return True
+
+    lo, hi = 1, 4096   # fits(lo); not fits(hi)
+    assert fits(lo) and not fits(hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    largest = lo
+    assert largest >= 16
+    fn, ref, args = _forward(cuda_device, train, largest, 3, 1024, 50, wdt)
+    got, want = fn(*args), ref(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _assert_matches(g, w, wdt)
+    before = fn.launches
+    with pytest.raises(RuntimeError):
+        fn(*_forward(cuda_device, train, largest + 1, 3, 1024, 50, wdt)[2])
+    assert fn.launches == before
 
 
 @pytest.mark.cuda
