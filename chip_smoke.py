@@ -6,7 +6,8 @@
 Phases, one line or more each; any failure exits non-zero:
   1. build    every CUDA kernel of the port from ``cyclevae_tpu_torch/csrc``
               (``gru_ar.cu``, ``gru_ar_bwd.cu``, ``wavernn.cu``; one nvcc per
-              source, all started together);
+              source, all started together) and, beside them, the host DSP
+              library from ``cyclevae_tpu_torch/dsp/native`` (``make``);
   2. kernels  each kernel against its plain PyTorch version on the card,
               float32 and bf16, with kernel and plain times from CUDA events
               and the bound: K1 at the conversion path's shapes (H=1024,
@@ -34,12 +35,20 @@ Phases, one line or more each; any failure exits non-zero:
               the kernel path and of the plain path (``use_pallas=False``) on
               the same replayed draws, their losses compared;
   5. vocode   neural-vocoder synthesis of converted speech: phase 3's 4
-              requests converted (float32 ``Codec``, K1), GV-postfiltered,
-              their F0 converted, assembled into vocoder conditioning and
+              requests converted (float32 ``Codec``, K1), power-corrected
+              (``mod_pow``) before and after the GV postfilter, their F0
+              converted, assembled into vocoder conditioning and
               rendered by the hu896 WaveRNN through ``synthesize_vocoder``
               (K4, temperature 0.8), plus one request through a 2-speaker
               vocoder; the launch counts read around them; then the first
               4,000 samples of one request held against the plain sampler;
+  6. convert-wav  the whole stage-6 conversion, wav in to wavs out: speech-like
+              wavs of two speakers made from the seed (300 + 420 and 900 + 845
+              frames), analysed on the host (``analyze_pair``: WORLD, SPTK)
+              and converted by ``decode_pair`` on a float32 ``Codec`` (K1),
+              the first pair also on bf16; per pair the K1 launches (2), the 8
+              wav files, the metrics, the host time of each stage, and the
+              same analyses and draws through the plain path;
 then the card's name and power limit, one JSON line of the kernels, and as
 the last line ``{"ok": true, "device": {...}}``.
 
@@ -108,6 +117,18 @@ VOC_TEMPERATURE = 0.8               # the recipe's vocoder_temperature
 VOC_DIST_ROWS, VOC_DIST_T = 4, 50_000   # 200,000 draws for the distribution check
 SAMPLE_RATE = 22050                 # 5 ms frames at hop 110.25
 SHIFT_MS = 5.0
+MCEP_ALPHA, IRLEN = 0.455, 1024     # FeatureConfig defaults: mod_pow's warping, IR length
+# wav-to-wav conversion: speech-like wavs of a source (~120 Hz) and a target
+# (~220 Hz) speaker at the shortest and longest request lengths, each pair
+# through analyze_pair + decode_pair on a float32 Codec; the first also on bf16
+WAV_PAIRS = [REQUESTS[0], REQUESTS[-1]]
+WAV_F0 = {"src": 120.0, "trg": 220.0}
+# (min F0, max F0, power threshold) of the two speakers, as the recipe's
+# speaker table holds them (tests/test_e2e_pipeline.py's synthetic speakers)
+WAV_RANGE = {"src": (70.0, 400.0, -25.0), "trg": (100.0, 500.0, -25.0)}
+#   the same analyses and draws through the plain path: f32 metrics within
+#   1e-3 relative, each wav within 1e-3 relative L2 (bf16: 3e-2 both)
+WAV_F32_REL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -197,10 +218,17 @@ def wavernn_bound_ms(B: int, T: int, cfg):
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cyclevae_tpu_torch.dsp import _lib as dsp_lib
     from cyclevae_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    paths = _build.build(["gru_ar", "gru_ar_bwd", "wavernn"])
-    log(f"[build] {len(paths)} kernel source(s) in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(1) as pool:     # the host DSP library beside nvcc
+        dsp = pool.submit(dsp_lib.get_lib)
+        paths = _build.build(["gru_ar", "gru_ar_bwd", "wavernn"])
+        dsp.result()
+    log(f"[build] {len(paths)} kernel source(s) and the host DSP library ({dsp_lib._LIB_PATH}) "
+        f"in {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -641,15 +669,14 @@ def phase_train(dev):
 
 def phase_vocode(dev):
     """Neural-vocoder synthesis of converted speech, as
-    ``tools/vocode_converted.py`` drives it (without ``mod_pow``, which needs
-    SPTK, not ported yet)."""
+    ``tools/vocode_converted.py`` drives it."""
     from cyclevae_tpu_torch.models.wavernn import mulaw_decode, n_samples_for, upsample_cond
     from cyclevae_tpu_torch.ops.cuda_gru import cuda_gru_ar
     from cyclevae_tpu_torch.ops.cuda_wavernn import (NEAR_TIE_REL, cuda_wavernn_generate,
                                                      first_divergence,
                                                      wavernn_generate_reference)
     from cyclevae_tpu_torch.pipeline.decode import Codec, device_decode_pair, gv_postfilter
-    from cyclevae_tpu_torch.pipeline.features import convert_f0
+    from cyclevae_tpu_torch.pipeline.features import convert_f0, mod_pow
     from cyclevae_tpu_torch.pipeline.vocoder_stage import (converted_conditioning,
                                                            synthesize_vocoder)
     from cyclevae_tpu_torch.vi.train import CycleVAEConfig, init_cyclevae
@@ -680,8 +707,17 @@ def phase_vocode(dev):
     cvmceps = [device_decode_pair(codec, torch.Generator(device=dev).manual_seed(100 + i),
                                   src, trg)[2] for i, (src, trg) in enumerate(pairs)]
     cvgv = np.mean([np.var(c[:, 1:], axis=0) for c in cvmceps], axis=0)
+
+    def postprocess(src, cvmcep):
+        # the power correction before and after the GV postfilter, each
+        # request's natural mel-cepstra as the reference
+        # (tools/vocode_converted.py:144-148)
+        cvmcep = mod_pow(cvmcep, src[:, 4:], alpha=MCEP_ALPHA, irlen=IRLEN)
+        return mod_pow(gv_postfilter(cvmcep, gv_trg, cvgv), src[:, 4:], alpha=MCEP_ALPHA,
+                       irlen=IRLEN)
+
     feats_cv = [converted_conditioning(
-        src, gv_postfilter(c, gv_trg, cvgv),
+        src, postprocess(src, c),
         convert_f0(f0(src), lf0_src.mean(), lf0_src.std(), lf0_trg.mean(), lf0_trg.std()),
         SHIFT_MS) for (src, _), c in zip(pairs, cvmceps)]
     jobs = [(f"req{i}", vparams, vcfg, f, i, None) for i, f in enumerate(feats_cv)]
@@ -706,7 +742,7 @@ def phase_vocode(dev):
     k1, k4 = cuda_gru_ar.launches, cuda_wavernn_generate.launches
     ok &= k1 == 2 * len(pairs) and k4 == len(jobs)
     log(f"[vocode] main path: K1 {k1} (want {2 * len(pairs)}), K4 {k4} (want {len(jobs)}) "
-        "launches; mod_pow skipped (needs SPTK, not ported yet)")
+        "launches")
 
     # ---- the first T_VOC samples of request 0 against the plain sampler ----
     with torch.inference_mode():
@@ -721,6 +757,164 @@ def phase_vocode(dev):
         f"{'ok' if match else 'FAIL'}")
     log(f"[vocode] {'ok' if ok else 'FAIL'}")
     return ok, k4
+
+
+def speechlike_wav(f0: float, n: int, seed: int, fs: int = SAMPLE_RATE) -> np.ndarray:
+    """n samples of a sawtooth source through two moving formant resonators,
+    with breath noise and silence at the edges, in int16 range (the recipe
+    of the repository's end-to-end pipeline test)."""
+    from scipy.signal import lfilter
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / fs
+    dur = n / fs
+    ph = np.cumsum(f0 * (1.0 + 0.05 * np.sin(2 * np.pi * 2.0 * t))) / fs
+    src = 2.0 * (ph % 1.0) - 1.0
+    f1 = 600 + 200 * np.sin(2 * np.pi * 1.3 * t)
+    out = np.zeros(n)
+    for s in range(0, n, 2048):
+        e = min(s + 2048, n)
+        for fc, bw in ((np.mean(f1[s:e]), 120.0), (1800.0, 200.0)):
+            r = np.exp(-np.pi * bw / fs)
+            th = 2 * np.pi * fc / fs
+            out[s:e] += lfilter([1 - r], [1, -2 * r * np.cos(th), r * r], src[s:e])
+    out += 0.01 * rng.normal(size=n)
+    env = np.minimum(1.0, np.maximum(0.0, np.sin(np.pi * t / dur) * 1.5))
+    return out * env * 8000.0
+
+
+def phase_convert_wav(dev):
+    """The whole stage-6 conversion, wav in to wavs out: ``analyze_pair``
+    (WORLD/SPTK analysis on the host) and ``decode_pair`` (the device call
+    through ``Codec``, DTW metrics, ``mod_pow``, the GV postfilter, seven
+    WORLD syntheses and an MLSA filtering), as the recipe drives it."""
+    import tempfile
+
+    from scipy.io import wavfile
+
+    from cyclevae_tpu_torch.dsp import _lib as dsp_lib
+    from cyclevae_tpu_torch.ops.cuda_gru import cuda_gru_ar
+    from cyclevae_tpu_torch.pipeline.decode import (Codec, analyze_pair, decode_pair,
+                                                    device_decode_pair)
+    from cyclevae_tpu_torch.utils.config import ExperimentConfig
+    from cyclevae_tpu_torch.utils.wavio import write_wav
+    from cyclevae_tpu_torch.vi.train import CycleVAEConfig, init_cyclevae
+
+    exp = ExperimentConfig()
+    fs, hop = exp.feature.fs, exp.feature.fs * exp.feature.shiftms / 1000.0
+    suffixes = ("_noGV", "_noGV_src", "_noGV_trg", "_GV", "_GV_src", "_GV_trg", "_DiffGV",
+                "_DiffGVF0")
+    ranges = (*WAV_RANGE["src"][:2], *WAV_RANGE["trg"][:2], WAV_RANGE["src"][2],
+              WAV_RANGE["trg"][2])
+    ok = True
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wav") as tmp:
+        # ---- inputs: speech-like wavs from the seed, analysed on the host ----
+        jobs = []
+        for i, frames in enumerate(WAV_PAIRS):
+            paths = []
+            for side, T in zip(("src", "trg"), frames):
+                path = os.path.join(tmp, f"pair{i}_{side}.wav")
+                # T frames of 5 ms: the analysis makes int(n / hop) + 1 frames
+                write_wav(path, fs, speechlike_wav(WAV_F0[side] * (1 + 0.05 * i),
+                                                   int((T - 1) * hop) + 1, seed=SEED + 20 + 2 * i
+                                                   + (side == "trg")))
+                paths.append(path)
+            t0 = time.perf_counter()
+            ana = analyze_pair(exp, *paths, *ranges)
+            ana_s = time.perf_counter() - t0
+            got = (len(ana["src"]["feat"]), len(ana["trg"]["feat"]))
+            ok &= got == frames
+            jobs.append((f"pair{i}", paths, ana, ana_s))
+            log(f"[convert-wav] pair{i}: {frames[0]} + {frames[1]} frames ({got} analysed), "
+                f"analysis {ana_s * 1e3:.1f} ms")
+
+        # statistics of the two speakers (the recipe reads them from stage 2's
+        # and stage 5's HDF5 statistics, not ported yet): log-F0 mean and std
+        # of the analysed wavs; GV from the natural mel-cepstra and from one
+        # earlier pass of the device phase over the same pairs
+        lf0 = {side: np.log(np.concatenate([a[side]["f0"][a[side]["f0"] > 0]
+                                            for _, _, a, _ in jobs])) for side in ("src", "trg")}
+        f0stats = {f"lf0_{m}_{side}": float(getattr(v, m)()) for side, v in lf0.items()
+                   for m in ("mean", "std")}
+        allf = np.concatenate([a[side]["feat"] for _, _, a, _ in jobs for side in ("src", "trg")])
+        mean, scale = allf.mean(axis=0), allf.std(axis=0) + 1e-3
+        codecs = {}
+        for dt in ("float32", "bfloat16"):
+            cfg = CycleVAEConfig(use_pallas=True, compute_dtype=dt)
+            params = init_cyclevae(torch.Generator(device=dev).manual_seed(SEED), cfg, mean, scale,
+                                   device=dev)
+            codecs[dt] = (Codec(params, cfg, device=dev),
+                          Codec(params, dataclasses.replace(cfg, use_pallas=False), device=dev))
+        first = [device_decode_pair(codecs["float32"][0],
+                                    torch.Generator(device=dev).manual_seed(300 + i),
+                                    a["src"]["feat"], a["trg"]["feat"])
+                 for i, (_, _, a, _) in enumerate(jobs)]
+        device_decode_pair(codecs["bfloat16"][0], None, jobs[0][2]["src"]["feat"],
+                           jobs[0][2]["trg"]["feat"])   # bf16 warm-up
+        gvar = lambda mats: np.mean([np.var(m[:, 1:], axis=0) for m in mats], axis=0)
+        gv = {"gv_mean_src": gvar([a["src"]["mcep"] for _, _, a, _ in jobs]),
+              "gv_mean_trg": gvar([a["trg"]["mcep"] for _, _, a, _ in jobs]),
+              "cvgv_mean": gvar([o[2] for o in first]),
+              "cvgvsrc_mean": gvar([o[3] for o in first]),
+              "cvgvtrg_mean": gvar([o[4] for o in first])}
+        runs = [(dt, job) for dt in ("float32",) for job in jobs] + [("bfloat16", jobs[0])]
+
+        def convert(codec, dt, name, paths, ana, seed):
+            outdir = os.path.join(tmp, f"{name}_{dt}_{'kernel' if codec.cfg.use_pallas else 'plain'}")
+            timings = {}
+            t0 = time.perf_counter()
+            metrics = decode_pair(codec, exp, torch.Generator(device=dev).manual_seed(seed),
+                                  *paths, outdir, f0stats, gv, *ranges, out_name=name,
+                                  analysis=ana, timings=timings)
+            timings["total"] = time.perf_counter() - t0
+            wavs = {}
+            for sfx in suffixes:
+                rate, y = wavfile.read(os.path.join(outdir, f"{name}{sfx}.wav"))
+                wavs[sfx] = (rate, y.astype(np.float64))
+            return metrics, wavs, timings
+
+        # ---- the main path: counts set to 0 just before, read just after ----
+        results = []
+        cuda_gru_ar.launches = 0
+        for k, (dt, (name, paths, ana, ana_s)) in enumerate(runs):
+            before = cuda_gru_ar.launches
+            metrics, wavs, timings = convert(codecs[dt][0], dt, name, paths, ana, 400 + k)
+            results.append((dt, name, paths, ana, ana_s, metrics, wavs, timings,
+                            cuda_gru_ar.launches - before))
+        launches = cuda_gru_ar.launches
+
+        # ---- each request's outputs, and the plain path on the same analyses ----
+        lib = dsp_lib.get_lib()
+        for k, (dt, name, paths, ana, ana_s, metrics, wavs, timings, n_k1) in enumerate(results):
+            T, Tt = len(ana["src"]["feat"]), len(ana["trg"]["feat"])
+            n_syn = {sfx: lib.cvdsp_synthesis_length(Tt if sfx.endswith("_trg") else T, fs,
+                                                     exp.feature.shiftms) for sfx in suffixes}
+            n_syn["_DiffGV"] = len(ana["x"])
+            shapes = all(wavs[sfx][0] == fs and wavs[sfx][1].shape == (n_syn[sfx],)
+                         and np.isfinite(wavs[sfx][1]).all() and np.abs(wavs[sfx][1]).max() > 0
+                         for sfx in suffixes)
+            finite = all(np.isfinite(v) for v in metrics.values()) and len(metrics) == 9
+            p_metrics, p_wavs, _ = convert(codecs[dt][1], dt, name, paths, ana, 400 + k)
+            m_rel = max(abs(metrics[m] - p_metrics[m]) / abs(p_metrics[m]) for m in metrics)
+            w_rel = max(float(np.linalg.norm(wavs[s][1] - p_wavs[s][1])
+                              / np.linalg.norm(p_wavs[s][1])) for s in suffixes)
+            tol = WAV_F32_REL if dt == "float32" else BF16_REL_L2
+            good = n_k1 == 2 and shapes and finite and m_rel < tol and w_rel < tol
+            ok &= good
+            total = ana_s + timings["total"]
+            speech_s = (len(ana["x"])) / fs
+            log(f"[convert-wav] {name} {dt}: {T} + {Tt} frames, {speech_s:.3f} s of source speech; "
+                f"host ms: analysis {ana_s * 1e3:.1f}, device {timings['device'] * 1e3:.1f}, "
+                f"metrics+mod_pow+postfilter {timings['metrics'] * 1e3:.1f}, "
+                f"8 syntheses {timings['synthesis'] * 1e3:.1f}, request total {total * 1e3:.1f} "
+                f"(x{total / speech_s:.3f} of the speech); K1 launches {n_k1} (want 2); "
+                f"8 wavs of the synthesis length {shapes}; metrics "
+                + ", ".join(f"{m} {v:.4f}" for m, v in metrics.items())
+                + f"; vs plain path: metrics rel {m_rel:.3e}, wav rel_l2 {w_rel:.3e} (< {tol}) "
+                f"{'ok' if good else 'FAIL'}")
+    ok &= launches == 2 * len(runs)
+    log(f"[convert-wav] main path: K1 {launches} launches (want {2 * len(runs)})")
+    log(f"[convert-wav] {'ok' if ok else 'FAIL'}")
+    return ok, launches
 
 
 def _leaves(tree):
@@ -754,7 +948,9 @@ def main() -> int:
     main_ok, launches = phase_main(dev)
     train_ok, (k2_launches, k3_launches) = phase_train(dev)
     vocode_ok, k4_launches = phase_vocode(dev)
-    ok = (main_ok and train_ok and vocode_ok and voc_kern_ok
+    wav_ok, wav_launches = phase_convert_wav(dev)
+    launches += wav_launches
+    ok = (main_ok and train_ok and vocode_ok and wav_ok and voc_kern_ok
           and all(r["ok"] for r in kern.values())
           and all(r["ok"] for r in train_kern.values()))
 

@@ -1,25 +1,59 @@
-"""Stage 6: the device side of conversion — the ``Codec`` engine.
+"""Stage 6: decode / conversion of (source wav, target wav) pairs.
 
-PyTorch counterpart of the device part of ``cyclevae_tpu/pipeline/decode.py``.
-Per (source, target) utterance pair the recipe makes two device calls
-(``device_decode_pair``): one batched encode plus posterior-mean draw for both
-utterances, and one batched 3-direction decode (trg-code conversion, src-code
-reconstruction, trg self-reconstruction).  The host DSP around it (WORLD/SPTK
-analysis and synthesis, DTW metrics, power correction) and the GV statistics
-I/O are not ported yet.
+PyTorch counterpart of ``cyclevae_tpu/pipeline/decode.py`` (reference
+src/bin/decode_gru-cyclevae_gauss.py). Per pair, ``decode_pair``:
+  on-the-fly WORLD/SPTK analysis of both wavs (``analyze_pair``, host)
+  -> the device phase (``device_decode_pair``: one batched encode plus
+  posterior-mean draw for both utterances, one batched 3-direction decode:
+  trg-code conversion, src-code reconstruction, trg self-reconstruction;
+  the ``Codec`` engine, K1 on CUDA)
+  -> DTW latent distances + MCD metrics -> mod_pow power correction
+  -> GV postfilter scaling deviations by sqrt(gv_data/gv_model)
+  -> log-Gaussian F0 transform -> 8 synthesis variants
+  (_noGV/_GV x cv/src/trg, _DiffGV, _DiffGVF0; decode…py:479-548).
+The host DSP is the port's copy of the C++ library (:mod:`..dsp`). Stage 5's
+GV calibration (``calc_cvgv``, which reads HDF5 features) is not ported yet:
+``decode_pair`` takes its F0 and GV statistics as dicts.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import logging
+import os
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..dsp import dtw as dtw_c
+from ..dsp import sptk, world
 from ..models.gru_vae import (gru_rnn_apply, sampling_vae_batch,
                               sampling_vae_laplace_batch)
+from ..utils.config import ExperimentConfig
 from ..utils.device import resolve_device
+from ..utils.wavio import low_cut_filter, low_pass_filter, read_wav, write_wav
 from ..vi.train import CycleVAEConfig, CycleVAEParams, params_to
+from .features import analyze, convert_continuos_f0, convert_f0, extfrm, mod_pow, spc2npow
+
+
+def _feat_from_wav(x, fs, minf0, maxf0, pow_threshold, cfg_feat):
+    """On-the-fly analysis to the 54-d feature vector (decode…py:254-299)."""
+    time_axis, f0, sp, ap = analyze(x, fs, minf0=minf0, maxf0=maxf0,
+                                    fperiod=cfg_feat.shiftms, fftl=cfg_feat.fftl)
+    mcep = sptk.sp2mc(sp, cfg_feat.mcep_dim, cfg_feat.mcep_alpha)
+    codeap = world.code_aperiodicity(ap, fs)
+    npow = spc2npow(sp)
+    _, spcidx = extfrm(mcep, npow, power_threshold=pow_threshold)
+    uv, contf0 = convert_continuos_f0(np.array(f0))
+    cont_f0_lpf = low_pass_filter(contf0, int(1.0 / (cfg_feat.shiftms * 0.001)),
+                                  cutoff=20)
+    feat = np.c_[np.expand_dims(uv, -1),
+                 np.expand_dims(np.log(cont_f0_lpf), -1), codeap, mcep]
+    return {
+        "time_axis": time_axis, "f0": f0, "sp": sp, "ap": ap, "mcep": mcep,
+        "npow": npow, "spcidx": spcidx[0], "feat": feat.astype(np.float32),
+    }
 
 
 class Codec:
@@ -194,6 +228,35 @@ def gv_postfilter(cvmcep: np.ndarray, gv_mean_data: np.ndarray,
                  * (cvmcep[:, 1:] - datamean) + datamean]
 
 
+def latent_dtw_metrics(lat_src: np.ndarray, lat_trg: np.ndarray,
+                       spc_src: np.ndarray, spc_trg: np.ndarray,
+                       lat_dim: int) -> Dict[str, float]:
+    """DTW-aligned latent RMSE / cosine distance between paired utterances
+    (decode…py:332-360)."""
+    mu_s = lat_src[spc_src][:, :lat_dim].astype(np.float64)
+    mu_t = lat_trg[spc_trg][:, :lat_dim].astype(np.float64)
+    aligned, _, _, _ = dtw_c.dtw_org_to_trg(mu_s, mu_t)
+    rmse = float(np.mean(np.sqrt(np.mean((aligned - mu_t) ** 2, axis=1))))
+    num = np.sum(aligned * mu_t, axis=1)
+    den = (np.linalg.norm(aligned, axis=1) * np.linalg.norm(mu_t, axis=1) + 1e-12)
+    cos = float(np.mean(1.0 - num / den))
+    return {"lat_rmse": rmse, "lat_cos": cos}
+
+
+def analyze_pair(exp: ExperimentConfig, wav_file: str, wav_trg_file: str,
+                 minf0: float, maxf0: float, minf0_trg: float,
+                 maxf0_trg: float, pow_src: float, pow_trg: float):
+    """Host-DSP analysis phase of one decode pair (WORLD/SPTK, no device).
+    Split out so a caller can prefetch analyses on a producer thread while
+    the device decodes the previous pair (decode…py:254-299)."""
+    fcfg = exp.feature
+    fs, x = read_wav(wav_file, cutoff=int(fcfg.highpass_cutoff))
+    src = _feat_from_wav(x, fs, minf0, maxf0, pow_src, fcfg)
+    _, x_trg = read_wav(wav_trg_file, cutoff=int(fcfg.highpass_cutoff))
+    trg = _feat_from_wav(x_trg, fs, minf0_trg, maxf0_trg, pow_trg, fcfg)
+    return {"fs": fs, "x": x, "src": src, "trg": trg}
+
+
 def device_decode_pair(codec: Codec, generator: Optional[torch.Generator],
                        src_feat: np.ndarray, trg_feat: np.ndarray, eps=None):
     """Device phase of one conversion request: ONE fused batched
@@ -214,3 +277,129 @@ def device_decode_pair(codec: Codec, generator: Optional[torch.Generator],
         (_speaker_codes(Tt, cfg.n_spk, 1), z_trg),
     ])
     return lat_src, lat_trg, cvmcep, cvmcep_src, cvmcep_trg
+
+
+def decode_pair(codec: Codec, exp: ExperimentConfig,
+                generator: Optional[torch.Generator],
+                wav_file: str, wav_trg_file: str, outdir: str,
+                f0stats: Dict[str, float], gv: Dict[str, np.ndarray],
+                minf0: float, maxf0: float, minf0_trg: float, maxf0_trg: float,
+                pow_src: float, pow_trg: float,
+                out_name: Optional[str] = None,
+                analysis: Optional[dict] = None, eps=None,
+                timings: Optional[Dict[str, float]] = None) -> Dict[str, float]:
+    """Full decode of one (source wav, target wav) pair; writes 8 wavs.
+    Returns the metric dict for corpus aggregation (decode…py:604-644).
+    ``analysis``: pre-computed analyze_pair output (prefetch path).
+    ``generator`` / ``eps``: the posterior-mean draws, as
+    ``device_decode_pair`` takes them.  ``timings``: if given, filled with
+    the host-clock seconds of each stage ("analysis", "device", "metrics"
+    for the metrics, mod_pow and the postfilter, "synthesis" for the eight
+    renderings and their files)."""
+    fcfg = exp.feature
+    cfg = codec.cfg
+    clock = [time.perf_counter()]
+
+    def lap(stage):
+        now = time.perf_counter()
+        if timings is not None:
+            timings[stage] = now - clock[0]
+        clock[0] = now
+
+    if analysis is None:
+        analysis = analyze_pair(exp, wav_file, wav_trg_file, minf0, maxf0,
+                                minf0_trg, maxf0_trg, pow_src, pow_trg)
+        lap("analysis")
+    fs, x = analysis["fs"], analysis["x"]
+    src, trg = analysis["src"], analysis["trg"]
+
+    base = out_name or os.path.splitext(os.path.basename(wav_file))[0]
+    os.makedirs(outdir, exist_ok=True)
+
+    lat_src, lat_trg, cvmcep, cvmcep_src, cvmcep_trg = device_decode_pair(
+        codec, generator, src["feat"], trg["feat"], eps=eps)
+    lap("device")
+
+    metrics: Dict[str, float] = {}
+    metrics.update(latent_dtw_metrics(lat_src, lat_trg, src["spcidx"],
+                                      trg["spcidx"], cfg.lat_dim))
+
+    # --- MCD of conversion vs target (DTW), recon vs source (framewise) ---
+    mcep_src_spc = src["mcep"][src["spcidx"]].astype(np.float64)
+    mcep_trg_spc = trg["mcep"][trg["spcidx"]].astype(np.float64)
+    cv_spc = cvmcep[src["spcidx"]]
+    _, _, metrics["mcdpow_cv"], _ = dtw_c.dtw_org_to_trg(cv_spc, mcep_trg_spc)
+    _, _, metrics["mcd_cv"], _ = dtw_c.dtw_org_to_trg(cv_spc[:, 1:],
+                                                      mcep_trg_spc[:, 1:])
+    metrics["mcdpow_src"], _ = dtw_c.calc_mcd(cvmcep_src[src["spcidx"]],
+                                              mcep_src_spc)
+    metrics["mcd_src"], _ = dtw_c.calc_mcd(cvmcep_src[src["spcidx"]][:, 1:],
+                                           mcep_src_spc[:, 1:])
+    metrics["mcdpow_trg"], _ = dtw_c.calc_mcd(cvmcep_trg[trg["spcidx"]],
+                                              mcep_trg_spc)
+    metrics["mcd_trg"], _ = dtw_c.calc_mcd(cvmcep_trg[trg["spcidx"]][:, 1:],
+                                           mcep_trg_spc[:, 1:])
+
+    # --- power correction (decode…py:406-416) ---
+    # mc2e of the (fixed) reference mceps is the stage-6 host hot path —
+    # compute once per side and share across all 6 mod_pow calls
+    src_e = sptk.mc2e(src["mcep"], alpha=fcfg.mcep_alpha, irlen=fcfg.irlen)
+    trg_e = sptk.mc2e(trg["mcep"], alpha=fcfg.mcep_alpha, irlen=fcfg.irlen)
+    cvmcep = mod_pow(cvmcep, src["mcep"], alpha=fcfg.mcep_alpha,
+                     irlen=fcfg.irlen, ref_e=src_e)
+    cvmcep_src = mod_pow(cvmcep_src, src["mcep"], alpha=fcfg.mcep_alpha,
+                         irlen=fcfg.irlen, ref_e=src_e)
+    cvmcep_trg = mod_pow(cvmcep_trg, trg["mcep"], alpha=fcfg.mcep_alpha,
+                         irlen=fcfg.irlen, ref_e=trg_e)
+
+    # --- GV postfilter (decode…py:418-467) ---
+    cvmcep_gv = gv_postfilter(cvmcep, gv["gv_mean_trg"], gv["cvgv_mean"])
+    cvmcep_src_gv = gv_postfilter(cvmcep_src, gv["gv_mean_src"], gv["cvgvsrc_mean"])
+    cvmcep_trg_gv = gv_postfilter(cvmcep_trg, gv["gv_mean_trg"], gv["cvgvtrg_mean"])
+    _, _, metrics["mcd_cvgv"], _ = dtw_c.dtw_org_to_trg(
+        cvmcep_gv[src["spcidx"]][:, 1:], mcep_trg_spc[:, 1:])
+    cvmcep_gv = mod_pow(cvmcep_gv, src["mcep"], alpha=fcfg.mcep_alpha,
+                        irlen=fcfg.irlen, ref_e=src_e)
+    cvmcep_src_gv = mod_pow(cvmcep_src_gv, src["mcep"], alpha=fcfg.mcep_alpha,
+                            irlen=fcfg.irlen, ref_e=src_e)
+    cvmcep_trg_gv = mod_pow(cvmcep_trg_gv, trg["mcep"], alpha=fcfg.mcep_alpha,
+                            irlen=fcfg.irlen, ref_e=trg_e)
+
+    # --- differential mceps + converted F0 (decode…py:469-477) ---
+    mc_cv_diff = cvmcep_gv - src["mcep"]
+    cvf0 = convert_f0(src["f0"], f0stats["lf0_mean_src"], f0stats["lf0_std_src"],
+                      f0stats["lf0_mean_trg"], f0stats["lf0_std_trg"])
+    lap("metrics")
+
+    # --- synthesis x8 (decode…py:479-548) ---
+    def synth(mcep_mat, f0_use, ap_use, suffix):
+        cvsp = sptk.mc2sp(mcep_mat, fcfg.mcep_alpha, fcfg.fftl)
+        wav = world.synthesize(f0_use, cvsp, ap_use, fs,
+                               frame_period=fcfg.shiftms)
+        write_wav(os.path.join(outdir, f"{base}{suffix}.wav"), fs, wav)
+
+    synth(cvmcep, cvf0, src["ap"], "_noGV")
+    synth(cvmcep_src, src["f0"], src["ap"], "_noGV_src")
+    synth(cvmcep_trg, trg["f0"], trg["ap"], "_noGV_trg")
+    synth(cvmcep_gv, cvf0, src["ap"], "_GV")
+    synth(cvmcep_src_gv, src["f0"], src["ap"], "_GV_src")
+    synth(cvmcep_trg_gv, trg["f0"], trg["ap"], "_GV_trg")
+
+    # differential-spectrum MLSA filtering of the original waveform
+    shiftl = int(fs / 1000 * fcfg.shiftms)
+    b = sptk.mc2b(mc_cv_diff, fcfg.mcep_alpha)
+    wav_diff = sptk.mlsadf(x, b, fcfg.mcep_alpha, hop=shiftl)
+    write_wav(os.path.join(outdir, f"{base}_DiffGV.wav"), fs, wav_diff)
+
+    # re-analysis of the filtered waveform + F0-swapped re-synthesis
+    wav_hp = low_cut_filter(np.clip(wav_diff, -32768, 32767), fs, 70)
+    sp_diff = world.cheaptrick(wav_hp, src["f0"], src["time_axis"], fs, fcfg.fftl)
+    ap_diff = world.d4c(wav_hp, src["f0"], src["time_axis"], fs, fcfg.fftl)
+    wav_f0 = world.synthesize(cvf0, sp_diff, ap_diff, fs,
+                              frame_period=fcfg.shiftms)
+    write_wav(os.path.join(outdir, f"{base}_DiffGVF0.wav"), fs, wav_f0)
+    lap("synthesis")
+
+    logging.info("decoded %s -> %s: %s", wav_file, outdir,
+                 {k: round(v, 3) for k, v in metrics.items()})
+    return metrics

@@ -152,7 +152,7 @@ def test_entry_points_need_cuda_unless_told(monkeypatch):
 
 def test_package_imports_without_jax():
     """Every module of the port imports with jax, optax, cyclevae_tpu and
-    h5py blocked, the vocoder slice's among them."""
+    h5py blocked, the vocoder slice's and the host DSP's among them."""
     code = (
         "import sys, importlib, pkgutil\n"
         "for m in ('jax', 'jaxlib', 'optax', 'cyclevae_tpu', 'h5py'):\n"
@@ -164,8 +164,13 @@ def test_package_imports_without_jax():
         "    m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'cyclevae_tpu', 'h5py'))]\n"
         "assert not loaded, loaded\n"
         "for m in ('models.wavernn', 'ops.cuda_wavernn', 'pipeline.vocoder_stage',\n"
-        "          'pipeline.features', 'utils.wavio', 'interop'):\n"
+        "          'pipeline.features', 'pipeline.decode', 'utils.wavio', 'interop',\n"
+        "          'dsp', 'dsp._lib', 'dsp.sptk', 'dsp.world', 'dsp.dtw', 'dsp.mlpg',\n"
+        "          'dsp.torch_ops'):\n"
         "    assert 'cyclevae_tpu_torch.' + m in sys.modules, m\n"
+        "import numpy as np\n"
+        "from cyclevae_tpu_torch.dsp import sptk\n"
+        "assert sptk.mc2sp(np.zeros((1, 25)), 0.455, 64).shape == (1, 33)\n"
         "print('imported', len([m for m in sys.modules if m.startswith('cyclevae_tpu_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
