@@ -49,6 +49,17 @@ Phases, one line or more each; any failure exits non-zero:
               the first pair also on bf16; per pair the K1 launches (2), the 8
               wav files, the metrics, the host time of each stage, and the
               same analyses and draws through the plain path;
+  7. recipe   the one-to-one recipe, ``run_stages`` over stages 1, a, 2, 3,
+              4, 5 and 6 in turn, at the flagship width (``ModelConfig``
+              defaults: the kernel route) on a corpus of two speech-like
+              speakers made from the seed (8 parallel train-directory
+              utterances of 1.5-2.5 s each, n_train 4, 1 eval utterance
+              each): per stage the host seconds, the K1, K2 and K3 launches
+              and the plain scan's calls (none); stage 4's seconds per step
+              and real frames/s, stage 6's request time and real-time factor;
+              every stage's artifacts; then epoch 1 of stage 4 and stage 5
+              on the plain path (``use_pallas=False``) from the same seeds,
+              held to the kernel run's epoch metrics and cvgv statistics;
 then the card's name and power limit, one JSON line of the kernels, and as
 the last line ``{"ok": true, "device": {...}}``.
 
@@ -129,6 +140,22 @@ WAV_RANGE = {"src": (70.0, 400.0, -25.0), "trg": (100.0, 500.0, -25.0)}
 #   the same analyses and draws through the plain path: f32 metrics within
 #   1e-3 relative, each wav within 1e-3 relative L2 (bf16: 3e-2 both)
 WAV_F32_REL = 1e-3
+# the recipe (phase 7): two speakers' train directories of RECIPE_UTTS
+# utterances of 1.5-2.5 s, utterance i of both with the same content (length,
+# formants, noise) so that the pair sets are parallel, and one 2.0 s eval
+# utterance each; the first RECIPE_N_TRAIN of each speaker are the source's
+# training set, the rest the target's (the recipe's non-parallel split), so 8
+# utterances train, 2 steps of bsu 5 per epoch
+RECIPE_SPEAKERS = {"SPKA": WAV_F0["src"], "SPKB": WAV_F0["trg"]}
+RECIPE_UTTS, RECIPE_N_TRAIN, RECIPE_EPOCHS = 8, 4, 2
+RECIPE_SECONDS = np.linspace(1.5, 2.5, RECIPE_UTTS)
+RECIPE_EVAL_SECONDS = 2.0
+#   epoch 1 of stage 4 on the plain path from the same seeds: every epoch
+#   train metric within 2e-3 relative (the per-segment train bound above);
+#   stage 5 on the plain path, from the same checkpoint and seed: the cvgv
+#   statistics within 1e-3 relative
+RECIPE_TRAIN_REL = LOSS_F32_ALL
+RECIPE_CVGV_REL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -917,6 +944,241 @@ def phase_convert_wav(dev):
     return ok, launches
 
 
+def _max_rel(got: dict, want: dict) -> float:
+    """The largest |got - want| / |want| over every value of every key."""
+    return max(float(np.max(np.abs(np.asarray(got[k]) - np.asarray(want[k]))
+                            / np.abs(np.asarray(want[k])))) for k in want)
+
+
+def phase_recipe(dev):
+    """The one-to-one recipe, wav corpus to trained model to converted wavs,
+    through ``run_stages`` as ``python -m cyclevae_tpu_torch --stage
+    1a23456`` drives it, one stage at a time so that each stage's launches
+    are read around it."""
+    import shutil
+    import tempfile
+
+    from cyclevae_tpu_torch.dsp import _lib as dsp_lib
+    from cyclevae_tpu_torch.models import gru_vae
+    from cyclevae_tpu_torch.ops.cuda_gru import cuda_gru_ar, cuda_gru_ar_bwd, cuda_gru_ar_train
+    from cyclevae_tpu_torch.pipeline import decode, recipe, train_stage
+    from cyclevae_tpu_torch.utils.config import ExperimentConfig, ModelConfig, TrainConfig
+    from cyclevae_tpu_torch.utils.store import read_store
+    from cyclevae_tpu_torch.utils.wavio import write_wav
+
+    def experiment(**model):
+        return ExperimentConfig(model=ModelConfig(spk_src="SPKA", spk_trg="SPKB", **model),
+                                train=TrainConfig(epoch_count=RECIPE_EPOCHS))
+
+    exp = experiment()
+    fs = exp.feature.fs
+    src, trg = RECIPE_SPEAKERS
+    cfg = train_stage.model_config(exp)
+    log(f"[recipe] flagship hl{cfg.hidden_layers} hu{cfg.hidden_units} ld{cfg.lat_dim} "
+        f"n_cyc{cfg.n_cyc} {cfg.compute_dtype} use_pallas {cfg.use_pallas}; bsu "
+        f"{exp.train.batch_size_utt}, {exp.train.epoch_count} epochs, n_train {RECIPE_N_TRAIN}")
+
+    # instruments, removed in the finally below: calls of the plain scan,
+    # the time and real frames of each train step, the time of each stage-6
+    # request's analysis and conversion
+    scans, steps, analyses, requests = [0], [], [], []
+    orig = {"scan": gru_vae.gru_ar_scan, "step": train_stage.make_train_step,
+            "analyze": decode.analyze_pair, "decode": decode.decode_pair}
+
+    def counted_scan(*a, **k):
+        scans[0] += 1
+        return orig["scan"](*a, **k)
+
+    def timed_make_step(cfg_, opt, seg_len, n_segs):
+        step = orig["step"](cfg_, opt, seg_len, n_segs)
+
+        def timed(ts, batch, *a):
+            t0 = time.perf_counter()
+            out = step(ts, batch, *a)
+            torch.cuda.synchronize()
+            flens = np.asarray(batch["flens"])
+            valid = sum(bool(np.any(flens > s * seg_len)) for s in range(n_segs))
+            steps.append((time.perf_counter() - t0, int(flens.sum()), valid))
+            return out
+        return timed
+
+    def timed_call(fn, into):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            into.append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    ok = True
+    totals = {"K1": 0, "K2": 0, "K3": 0}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_recipe") as tmp:
+        # ---- the corpus, made from the seed ----
+        wav_root, conf = os.path.join(tmp, "wav"), os.path.join(tmp, "conf")
+        for k, (spk, f0) in enumerate(RECIPE_SPEAKERS.items()):
+            side = ("src", "trg")[k]
+            for d in (os.path.join(wav_root, spk), os.path.join(wav_root, "eval", spk), conf):
+                os.makedirs(d, exist_ok=True)
+            for i, sec in enumerate(RECIPE_SECONDS):
+                write_wav(os.path.join(wav_root, spk, f"utt{i}.wav"), fs,
+                          speechlike_wav(f0 * (1 + 0.03 * i), int(sec * fs), seed=SEED + 40 + i))
+            write_wav(os.path.join(wav_root, "eval", spk, "e0.wav"), fs,
+                      speechlike_wav(f0 * 1.02, int(RECIPE_EVAL_SECONDS * fs), seed=SEED + 60))
+            minf0, maxf0, pw = WAV_RANGE[side]
+            with open(os.path.join(conf, f"{spk}.f0"), "w") as f:
+                f.write(f"{minf0} {maxf0}")
+            with open(os.path.join(conf, f"{spk}.pow"), "w") as f:
+                f.write(f"{pw}")
+        paths = recipe.RecipePaths(wav_root=wav_root, work=os.path.join(tmp, "work"),
+                                   n_train=RECIPE_N_TRAIN)
+        expdir = os.path.join(paths.work, "exp", exp.name())
+
+        # ---- the main path: counts set to 0 just before each stage, read just after ----
+        gru_vae.gru_ar_scan = counted_scan
+        train_stage.make_train_step = timed_make_step
+        decode.analyze_pair = timed_call(orig["analyze"], analyses)
+        decode.decode_pair = timed_call(orig["decode"], requests)
+        stage_runs = {}
+        try:
+            for stage in "1a23456":
+                cuda_gru_ar.launches = cuda_gru_ar_train.launches = cuda_gru_ar_bwd.launches = 0
+                scans[0] = 0
+                t0 = time.perf_counter()
+                recipe.run_stages(stage, exp, paths, conf_dir=conf, n_jobs=8, device=dev)
+                sec = time.perf_counter() - t0
+                stage_runs[stage] = dict(sec=sec, K1=cuda_gru_ar.launches,
+                                         K2=cuda_gru_ar_train.launches,
+                                         K3=cuda_gru_ar_bwd.launches, scan=scans[0])
+                for k in totals:
+                    totals[k] += stage_runs[stage][k]
+                log(f"[recipe] stage {stage}: {sec:.2f} s host; launches K1 "
+                    f"{cuda_gru_ar.launches}, K2 {cuda_gru_ar_train.launches}, K3 "
+                    f"{cuda_gru_ar_bwd.launches}; plain scan calls {scans[0]}")
+        finally:
+            gru_vae.gru_ar_scan = orig["scan"]
+            train_stage.make_train_step = orig["step"]
+            decode.analyze_pair = orig["analyze"]
+            decode.decode_pair = orig["decode"]
+
+        # ---- stage 4's steps and stage 6's request ----
+        secs = [t for t, _, _ in steps]
+        log(f"[recipe] stage 4: {len(steps)} train steps, s/step "
+            + ", ".join(f"{t:.4f}" for t in secs) + "; real frames/s "
+            + ", ".join(f"{n / t:.0f}" for t, n, _ in steps)
+            + f" (median {np.median(secs):.4f} s/step); valid segments per step "
+            + ", ".join(str(v) for _, _, v in steps))
+        eval_wavs = {spk: paths.wavs(spk, eval_set=True) for spk in RECIPE_SPEAKERS}
+        speech_s = sum(len(_read_wav_samples(w)) for w in eval_wavs[src]) / fs
+        request_s = sum(analyses) + sum(requests)
+        log(f"[recipe] stage 6: {len(requests)} request(s), analysis "
+            + ", ".join(f"{t * 1e3:.1f}" for t in analyses) + " ms, conversion "
+            + ", ".join(f"{t * 1e3:.1f}" for t in requests)
+            + f" ms; {speech_s:.3f} s of source speech, real-time factor "
+            f"{request_s / speech_s:.3f} (stage {stage_runs['6']['sec'] / speech_s:.3f})")
+
+        # ---- every stage's artifacts ----
+        wavs = [w for spk in RECIPE_SPEAKERS for e in (False, True) for w in paths.wavs(spk, e)]
+        feats = [f for spk in RECIPE_SPEAKERS for e in (False, True) for f in paths.h5s(spk, e)]
+        art = {"features": len(feats) == len(wavs) == 2 * (RECIPE_UTTS + 1)
+               and all(read_store(f, "/cvuvlogf0fil_ap").shape[1] == 4 for f in feats)}
+        art["spk_stat"] = all(os.path.getsize(os.path.join(paths.work, "init_spk_stat",
+                                                           f"{spk}.{x}.txt")) > 0
+                              for spk in RECIPE_SPEAKERS for x in ("f0", "pow"))
+        art["stats"] = all(os.path.exists(p) for p in (paths.stats(src), paths.stats(trg),
+                                                       paths.stats_jnt()))
+        with open(os.path.join(expdir, "history.json")) as f:
+            hist = json.load(f)
+        best = hist["best"]["epoch"]
+        art["history"] = best in (1, 2) and len(hist["history"]) == RECIPE_EPOCHS
+        art["checkpoints"] = all(os.path.exists(os.path.join(expdir, f"checkpoint-{n}.pkl"))
+                                 for n in ("1", "2", "latest", "final"))
+        model_id = f"{exp.name()}_ep{best}"
+        cvgv = {f"{k}_{m}": read_store(paths.stats(src), f"/{k}_{m}_{model_id}")
+                for k in ("cvgv", "cvgvsrc", "cvgvtrg") for m in ("mean", "var")}
+        art["cvgv"] = all(v.shape == (cfg.out_dim - 1,) and np.isfinite(v).all()
+                          for v in cvgv.values())
+        with open(os.path.join(expdir, f"decode_metrics_ep{best}.json")) as f:
+            dm = json.load(f)
+        art["decode_metrics"] = len(dm) == 18 and all(np.isfinite(v) for v in dm.values())
+        lib = dsp_lib.get_lib()
+        T, Tt = (len(read_store(paths.h5s(spk, True)[0], "/feat_org_lf0"))
+                 for spk in (src, trg))
+        out_wavs = {}
+        outdir = os.path.join(expdir, f"wav_cv_ep{best}")
+        for name in sorted(os.listdir(outdir)):
+            out_wavs[name] = _read_wav_samples(os.path.join(outdir, name))
+        want_len = {f"e0{sfx}.wav": lib.cvdsp_synthesis_length(
+            Tt if sfx.endswith("_trg") else T, fs, exp.feature.shiftms)
+            for sfx in ("_noGV", "_noGV_src", "_noGV_trg", "_GV", "_GV_src", "_GV_trg",
+                        "_DiffGVF0")}
+        want_len["e0_DiffGV.wav"] = len(_read_wav_samples(eval_wavs[src][0]))
+        art["wavs"] = sorted(out_wavs) == sorted(want_len) and all(
+            len(y) == want_len[n] and np.abs(y).max() > 0 for n, y in out_wavs.items())
+        ok &= all(art.values())
+        log("[recipe] artifacts: " + ", ".join(f"{k} {v}" for k, v in art.items())
+            + f"; best epoch {best} (criterion {hist['best']['criterion']:.4f}); decode "
+            + ", ".join(f"{k} {dm[k]:.4f}" for k in ("mcdpow_cv", "mcd_cv", "mcd_cvgv", "lat_rmse")))
+
+        # ---- the launches of each stage ----
+        r = stage_runs
+        # 4 AR-GRU calls per cycle: K2 and K3 per valid segment of a train
+        # step, K1 per eval batch (one source and one target batch an epoch);
+        # stage 5: 2 K1 launches per training utterance; stage 6: 2 per pair
+        want_k2 = 4 * cfg.n_cyc * sum(v for _, _, v in steps)
+        want_k1 = {"4": RECIPE_EPOCHS * 2 * 4 * cfg.n_cyc,
+                   "5": 2 * 2 * RECIPE_N_TRAIN, "6": 2 * len(eval_wavs[src])}
+        launches_ok = (r["4"]["K2"] == r["4"]["K3"] == want_k2 > 0
+                       and all(r[s]["K1"] == want_k1.get(s, 0) for s in r)
+                       and all(r[s]["K2"] == r[s]["K3"] == 0 for s in r if s != "4")
+                       and all(r[s]["scan"] == 0 for s in r))
+        ok &= launches_ok
+        log(f"[recipe] launches: stage 4 K2 {r['4']['K2']}, K3 {r['4']['K3']} (want "
+            f"{want_k2} each), K1 "
+            f"{r['4']['K1']} (want {want_k1['4']}); stage 5 K1 {r['5']['K1']} (want "
+            f"{want_k1['5']}); stage 6 K1 {r['6']['K1']} (want {want_k1['6']}); plain scan "
+            f"calls {sum(x['scan'] for x in r.values())} (want 0) "
+            f"{'ok' if launches_ok else 'FAIL'}")
+
+        # ---- the plain path from the same seeds: epoch 1 of stage 4, then stage 5 ----
+        def plain_work(name):
+            work = os.path.join(tmp, name)
+            os.makedirs(os.path.join(work, "exp", exp.name()))
+            os.symlink(os.path.join(paths.work, "hdf5"), os.path.join(work, "hdf5"))
+            shutil.copytree(os.path.join(paths.work, "stats"), os.path.join(work, "stats"))
+            return recipe.RecipePaths(wav_root=wav_root, work=work, n_train=RECIPE_N_TRAIN)
+
+        plain_exp = experiment(use_pallas=False)
+        plain_exp.train.epoch_count = 1
+        p4 = plain_work("plain4")
+        t0 = time.perf_counter()
+        recipe.run_stages("4", plain_exp, p4, conf_dir=conf, n_jobs=8, device=dev)
+        plain4_s = time.perf_counter() - t0
+        with open(os.path.join(p4.work, "exp", exp.name(), "history.json")) as f:
+            plain_train = json.load(f)["history"][0]["train"]
+        train_rel = _max_rel(hist["history"][0]["train"], plain_train)
+        p5 = plain_work("plain5")
+        for name in ("history.json", f"checkpoint-{best}.pkl"):
+            os.symlink(os.path.join(expdir, name), os.path.join(p5.work, "exp", exp.name(), name))
+        t0 = time.perf_counter()
+        recipe.run_stages("5", plain_exp, p5, conf_dir=conf, n_jobs=8, device=dev)
+        plain5_s = time.perf_counter() - t0
+        plain_cvgv = {k: read_store(p5.stats(src), f"/{k}_{model_id}") for k in cvgv}
+        cvgv_rel = _max_rel(cvgv, plain_cvgv)
+        plain_ok = train_rel < RECIPE_TRAIN_REL and cvgv_rel < RECIPE_CVGV_REL
+        ok &= plain_ok
+        log(f"[recipe] vs plain path: epoch-1 train metrics max rel {train_rel:.3e} (< "
+            f"{RECIPE_TRAIN_REL}; stage 4 plain, 1 epoch: {plain4_s:.1f} s); cvgv statistics max "
+            f"rel {cvgv_rel:.3e} (< {RECIPE_CVGV_REL}; stage 5 plain: {plain5_s:.1f} s) "
+            f"{'ok' if plain_ok else 'FAIL'}")
+    log(f"[recipe] {'ok' if ok else 'FAIL'}")
+    return ok, totals
+
+
+def _read_wav_samples(path: str) -> np.ndarray:
+    from scipy.io import wavfile
+    return wavfile.read(path)[1].astype(np.float64)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -949,8 +1211,11 @@ def main() -> int:
     train_ok, (k2_launches, k3_launches) = phase_train(dev)
     vocode_ok, k4_launches = phase_vocode(dev)
     wav_ok, wav_launches = phase_convert_wav(dev)
-    launches += wav_launches
-    ok = (main_ok and train_ok and vocode_ok and wav_ok and voc_kern_ok
+    recipe_ok, recipe_launches = phase_recipe(dev)
+    launches += wav_launches + recipe_launches["K1"]
+    k2_launches += recipe_launches["K2"]
+    k3_launches += recipe_launches["K3"]
+    ok = (main_ok and train_ok and vocode_ok and wav_ok and recipe_ok and voc_kern_ok
           and all(r["ok"] for r in kern.values())
           and all(r["ok"] for r in train_kern.values()))
 

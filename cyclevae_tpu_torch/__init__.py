@@ -8,7 +8,9 @@ imports ``torch`` and never ``jax`` or ``cyclevae_tpu``.
 Sub-packages
 ------------
 - ``utils``    : typed configs (a copy of the JAX package's), device choice,
-                 waveform I/O and FIR filters (a copy).
+                 waveform I/O and FIR filters (a copy), the feature store
+                 (``.npz`` files with the HDF5 store's dataset names),
+                 a prefetch thread.
 - ``models``   : GRU-VAE nets as plain functions on parameter dicts,
                  parameter init from a ``torch.Generator``, sampling, KL
                  terms, the training forward's draws; the WaveRNN vocoder.
@@ -20,8 +22,10 @@ Sub-packages
 - ``vi``       : model assembly, the training core (cyclic ELBO, TBPTT
                  train step, Adam), checkpoints (the port's, and JAX's read
                  without JAX).
-- ``pipeline`` : the stage-6 conversion engine (``Codec``), batching, the
-                 train stage's helpers, the F0 helpers of stage 1, and
+- ``pipeline`` : the one-to-one recipe (``recipe.run_stages``, ``python -m
+                 cyclevae_tpu_torch``): feature extraction, statistics,
+                 converted excitation, training (``run_train``), GV
+                 calibration, conversion (``Codec``, ``decode_pair``); and
                  neural-vocoder synthesis (``synthesize_vocoder``).
 - ``interop``  : JAX parameter pytrees <-> the port's tensors.
 

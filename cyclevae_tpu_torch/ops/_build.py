@@ -11,11 +11,12 @@ caller raises when it is not 0 (``error_string`` names it).
 from __future__ import annotations
 
 import ctypes
-import functools
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
@@ -49,14 +50,24 @@ def build(names: Iterable[str], defines: Tuple[str, ...] = ()) -> Dict[str, Path
     """Compile every named source that has no up-to-date library yet, one
     ``nvcc`` per source, all started together.  Returns name -> library path;
     the compiler's output (``-Xptxas -v``: registers, shared memory, spills)
-    is kept beside each library as ``.log``."""
+    is kept beside each library as ``.log``.  Another thread or process
+    building at the same time waits on the lock and then finds the
+    libraries built."""
     BUILD.mkdir(parents=True, exist_ok=True)
     paths = {name: library_path(name, defines) for name in names}
-    missing = [name for name, lib in paths.items() if not lib.exists()]
+    with open(BUILD / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            _compile({name: lib for name, lib in paths.items() if not lib.exists()}, defines)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return paths
+
+
+def _compile(missing: Dict[str, Path], defines: Tuple[str, ...]) -> None:
     nvcc = _nvcc() if missing else ""
     procs = {}
-    for name in missing:
-        lib = paths[name]
+    for name, lib in missing.items():
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         log = open(lib.with_suffix(".log"), "w")
         procs[name] = (subprocess.Popen(
@@ -74,16 +85,34 @@ def build(names: Iterable[str], defines: Tuple[str, ...] = ()) -> Dict[str, Path
                           + lib.with_suffix(".log").read_text())
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return paths
 
 
-@functools.lru_cache(maxsize=None)
+_LOAD_LOCK = threading.Lock()
+_LOADED: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+
+
 def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu``, built first if needed."""
-    lib = ctypes.CDLL(str(build([name], defines)[name]))
-    lib.cuda_error_string.argtypes = [ctypes.c_int]
-    lib.cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    """The library of ``csrc/<name>.cu``, built first if needed; opened
+    once per process, whichever thread asks first."""
+    with _LOAD_LOCK:
+        lib = _LOADED.get((name, defines))
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name], defines)[name]))
+            lib.cuda_error_string.argtypes = [ctypes.c_int]
+            lib.cuda_error_string.restype = ctypes.c_char_p
+            _LOADED[(name, defines)] = lib
+        return lib
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, a kernel wrapper's launch count:
+    ``+=`` on an attribute reads and writes in two steps that threads can
+    interleave."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

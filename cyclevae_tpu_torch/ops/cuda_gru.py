@@ -18,7 +18,8 @@ and K2, ``csrc/gru_ar_bwd.cu`` for K3; design notes there) for CUDA tensors,
 and its plain version (``gru_ar_reference``, ``gru_ar_train_reference``,
 ``gru_ar_bwd_reference``) for CPU tensors.  A CUDA tensor never falls back:
 the kernel launches or the call raises.  Each wrapper's ``launches`` counts
-its kernel's launches (added to after each launch that succeeded).
+its kernel's launches (added to after each launch that succeeded, under a
+lock: ``_build.count_launch``).
 
 Numerics follow the TPU kernels: every operand of a product is rounded to
 the weight dtype where the TPU kernel casts it, products accumulate in
@@ -342,9 +343,9 @@ def launch(lib: ctypes.CDLL, gru_layer: Dict, out_proj: Dict,
                  smem, _stream(dev))
         _build.check(lib, err, f"{name} launch")
     if train:
-        cuda_gru_ar_train.launches += 1
+        _build.count_launch(cuda_gru_ar_train)
         return trj, y_last, h_last, h_seq
-    cuda_gru_ar.launches += 1
+    _build.count_launch(cuda_gru_ar)
     return trj, y_last, h_last
 
 
@@ -421,5 +422,5 @@ def launch_bwd(lib: ctypes.CDLL, wout: torch.Tensor, whh: torch.Tensor, wy: torc
         err = fn(*(_ptr(t) for t in ptrs), B, T, hidden, out_dim, grid, units, stage_kk,
                  smem, _stream(dev))
         _build.check(lib, err, "gru_ar_bwd launch")
-    cuda_gru_ar_bwd.launches += 1
+    _build.count_launch(cuda_gru_ar_bwd)
     return dgx, dgh, dy_tot, dh0, dy0

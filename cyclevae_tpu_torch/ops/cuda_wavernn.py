@@ -238,5 +238,5 @@ def launch(lib: ctypes.CDLL, params: Dict, cfg: WaveRNNConfig, cond: torch.Tenso
         err = fn(*(_ptr(t) for t in ptrs), seed & _MASK32, float(temperature),
                  B, T, H, K, FC, grid, units, cluster, stage_rows, smem, _stream(dev))
         _build.check(lib, err, "wavernn launch")
-    cuda_wavernn_generate.launches += 1
+    _build.count_launch(cuda_wavernn_generate)
     return out

@@ -1,2 +1,2 @@
-"""Recipe stages (so far: the stage-6 conversion engine, batching, the train
-stage's helpers, and neural-vocoder synthesis)."""
+"""Recipe stages: the one-to-one recipe's stages 1, a, 2, 3, 4, 5 and 6
+(``recipe.run_stages``) and neural-vocoder synthesis."""

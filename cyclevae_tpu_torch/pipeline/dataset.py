@@ -1,19 +1,22 @@
-"""Utterances and batching for training and eval.
+"""Utterance datasets + batching for training and eval.
 
-PyTorch-side copy of the HDF5-free part of ``cyclevae_tpu/pipeline/
-dataset.py`` (reference src/utils/dataset.py padding; the train driver's
-generator, train…py:45-149): utterances are zero-padded to a BUCKET length,
-a multiple of quantum_segs TBPTT segments, and collated into numpy arrays
-with host-side metadata.  Reading utterances from HDF5 feature files waits
-for the port's HDF5 plan.
+PyTorch-side copy of ``cyclevae_tpu/pipeline/dataset.py`` over the port's
+feature store (reference src/utils/dataset.py FeatureDatasetSingleVAE
+pairing and padding; the train driver's generator, train…py:45-149):
+utterances are read from their ``.npz`` files, zero-padded to a BUCKET
+length, a multiple of quantum_segs TBPTT segments, and collated into numpy
+arrays with host-side metadata.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..utils.store import read_store
 
 
 def padding(x: np.ndarray, flen: int, value: float = 0.0) -> np.ndarray:
@@ -43,6 +46,55 @@ class Utterance:
     @property
     def flen(self) -> int:
         return self.feats.shape[0]
+
+
+def load_utterance(featfile: str, featfile_pair: str, spk_src: str,
+                   n_spk: int = 2) -> Utterance:
+    """One-to-one pairing contract (reference dataset.py:54-98): speaker
+    identity = directory name == spk_src -> code[0], else code[1]."""
+    feats = read_store(featfile, "/feat_org_lf0").astype(np.float32)
+    cv = read_store(featfile, "/cvuvlogf0fil_ap").astype(np.float32)
+    spcidx = np.asarray(read_store(featfile, "/spcidx_range")[0], dtype=np.int64)
+    T = feats.shape[0]
+    src_code = np.zeros((T, n_spk), np.float32)
+    trg_code = np.zeros((T, n_spk), np.float32)
+    is_src = os.path.basename(os.path.dirname(featfile)) == spk_src
+    if is_src:
+        src_code[:, 0] = 1
+        trg_code[:, 1] = 1
+    else:
+        src_code[:, 1] = 1
+        trg_code[:, 0] = 1
+    feats_pair = read_store(featfile_pair, "/feat_org_lf0").astype(np.float32)
+    spcidx_pair = np.asarray(read_store(featfile_pair, "/spcidx_range")[0],
+                             dtype=np.int64)
+    return Utterance(featfile, featfile_pair, feats, cv, spcidx,
+                     src_code, trg_code, feats_pair, spcidx_pair, is_src)
+
+
+class SingleVAEDataset:
+    """Paired one-to-one dataset: file i of list A with file i of list B
+    (reference dataset.py:54-98; train list = src_files + trg_files,
+    train…py:458).  Utterances are read once and kept."""
+
+    def __init__(self, files: Sequence[str], files_pair: Sequence[str],
+                 spk_src: str, n_spk: int = 2):
+        if len(files) != len(files_pair):
+            raise ValueError(f"{len(files)} files but {len(files_pair)} pair files")
+        self.files = list(files)
+        self.files_pair = list(files_pair)
+        self.spk_src = spk_src
+        self.n_spk = n_spk
+        self._cache: Dict[int, Utterance] = {}
+
+    def __len__(self):
+        return len(self.files)
+
+    def __getitem__(self, idx: int) -> Utterance:
+        if idx not in self._cache:
+            self._cache[idx] = load_utterance(
+                self.files[idx], self.files_pair[idx], self.spk_src, self.n_spk)
+        return self._cache[idx]
 
 
 def bucket_len(max_flen: int, seg_len: int, quantum_segs: int = 7) -> int:

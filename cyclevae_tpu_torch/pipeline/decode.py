@@ -11,15 +11,22 @@ src/bin/decode_gru-cyclevae_gauss.py). Per pair, ``decode_pair``:
   -> GV postfilter scaling deviations by sqrt(gv_data/gv_model)
   -> log-Gaussian F0 transform -> 8 synthesis variants
   (_noGV/_GV x cv/src/trg, _DiffGV, _DiffGVF0; decode…py:479-548).
-The host DSP is the port's copy of the C++ library (:mod:`..dsp`). Stage 5's
-GV calibration (``calc_cvgv``, which reads HDF5 features) is not ported yet:
-``decode_pair`` takes its F0 and GV statistics as dicts.
+The host DSP is the port's copy of the C++ library (:mod:`..dsp`).
+``decode_pair`` takes its F0 and GV statistics as dicts, which the recipe
+reads from the feature store; stage 5's GV calibration (``calc_cvgv``) writes
+the model's GV statistics there.
+
+Several threads may decode pairs at once (the recipe's stage 6): each
+codec's device calls run one request at a time, under the codec's lock, on
+the thread's current stream, and each ends in a copy to the host, so two
+requests' cooperative kernels never run at once.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -32,6 +39,7 @@ from ..models.gru_vae import (gru_rnn_apply, sampling_vae_batch,
                               sampling_vae_laplace_batch)
 from ..utils.config import ExperimentConfig
 from ..utils.device import resolve_device
+from ..utils.store import read_store, write_store
 from ..utils.wavio import low_cut_filter, low_pass_filter, read_wav, write_wav
 from ..vi.train import CycleVAEConfig, CycleVAEParams, params_to
 from .features import analyze, convert_continuos_f0, convert_f0, extfrm, mod_pow, spc2npow
@@ -77,6 +85,8 @@ class Codec:
         self.cfg = cfg
         self.n_smpl_dec = n_smpl_dec
         self.bucket = bucket
+        # held by device_decode_pair and calc_cvgv: one request's device calls at a time
+        self.lock = threading.Lock()
         # posterior family selects the clamp + reparameterized sampler
         laplace = cfg.posterior == "laplace"
         self._clamp_kw = ({"clamp_vae_laplace": True} if laplace
@@ -261,21 +271,22 @@ def device_decode_pair(codec: Codec, generator: Optional[torch.Generator],
                        src_feat: np.ndarray, trg_feat: np.ndarray, eps=None):
     """Device phase of one conversion request: ONE fused batched
     encode+posterior-mean call for both utterances and ONE fused
-    3-direction batched decode.  ``generator`` defaults to one seeded with 0
-    on the codec's device; ``eps`` (n_smpl_dec, 2, max(T_src, T_trg), lat)
-    replaces its draws.  Returns (lat_src, lat_trg, cvmcep, cvmcep_src,
-    cvmcep_trg)."""
+    3-direction batched decode, under the codec's lock.  ``generator``
+    defaults to one seeded with 0 on the codec's device; ``eps``
+    (n_smpl_dec, 2, max(T_src, T_trg), lat) replaces its draws.  Returns
+    (lat_src, lat_trg, cvmcep, cvmcep_src, cvmcep_trg)."""
     cfg = codec.cfg
     if generator is None and eps is None:
         generator = torch.Generator(device=codec.device).manual_seed(0)
-    (lat_src, lat_trg), (z_src, z_trg) = codec.encode_mean(
-        generator, [src_feat, trg_feat], eps)
-    T, Tt = len(z_src), len(z_trg)
-    cvmcep, cvmcep_src, cvmcep_trg = codec.decode_batch([
-        (_speaker_codes(T, cfg.n_spk, 1), z_src),
-        (_speaker_codes(T, cfg.n_spk, 0), z_src),
-        (_speaker_codes(Tt, cfg.n_spk, 1), z_trg),
-    ])
+    with codec.lock:
+        (lat_src, lat_trg), (z_src, z_trg) = codec.encode_mean(
+            generator, [src_feat, trg_feat], eps)
+        T, Tt = len(z_src), len(z_trg)
+        cvmcep, cvmcep_src, cvmcep_trg = codec.decode_batch([
+            (_speaker_codes(T, cfg.n_spk, 1), z_src),
+            (_speaker_codes(T, cfg.n_spk, 0), z_src),
+            (_speaker_codes(Tt, cfg.n_spk, 1), z_trg),
+        ])
     return lat_src, lat_trg, cvmcep, cvmcep_src, cvmcep_trg
 
 
@@ -403,3 +414,41 @@ def decode_pair(codec: Codec, exp: ExperimentConfig,
     logging.info("decoded %s -> %s: %s", wav_file, outdir,
                  {k: round(v, 3) for k, v in metrics.items()})
     return metrics
+
+
+def calc_cvgv(codec: Codec, exp: ExperimentConfig,
+              generator: Optional[torch.Generator],
+              feat_files_src: List[str], feat_files_trg: List[str],
+              stats_src: str, model_id: str) -> Dict[str, np.ndarray]:
+    """Stage 5: run the frozen model over TRAINING features, collect
+    per-utterance variances of converted mcep in 3 directions, and write
+    cvgv stats keyed by the model id into the source stats file
+    (reference calc_cvgv…py:131-362).  Each utterance's posterior-mean
+    draws come from ``generator``, in file order."""
+    cfg = codec.cfg
+    cvlists = {"cv": [], "cvsrc": [], "cvtrg": []}
+    for files, is_src in ((feat_files_src, True), (feat_files_trg, False)):
+        for f in files:
+            feat = read_store(f, "/feat_org_lf0").astype(np.float32)
+            # fused: one encode+mean call, one 2-direction batched decode
+            with codec.lock:
+                (lat,), (z,) = codec.encode_mean(generator, [feat])
+                T = len(z)
+                # direction indices mirror training codes: src speaker=0, trg=1
+                self_idx, other_idx = (0, 1) if is_src else (1, 0)
+                cv, cv_self = codec.decode_batch([
+                    (_speaker_codes(T, cfg.n_spk, other_idx), z),
+                    (_speaker_codes(T, cfg.n_spk, self_idx), z)])
+            if is_src:
+                cvlists["cv"].append(np.var(cv[:, 1:], axis=0))
+                cvlists["cvsrc"].append(np.var(cv_self[:, 1:], axis=0))
+            else:
+                cvlists["cvtrg"].append(np.var(cv_self[:, 1:], axis=0))
+    out = {}
+    for name, key in (("cv", "cvgv"), ("cvsrc", "cvgvsrc"), ("cvtrg", "cvgvtrg")):
+        arr = np.array(cvlists[name])
+        out[f"{key}_mean"] = arr.mean(axis=0)
+        out[f"{key}_var"] = arr.var(axis=0)
+        write_store(stats_src, f"/{key}_mean_{model_id}", out[f"{key}_mean"])
+        write_store(stats_src, f"/{key}_var_{model_id}", out[f"{key}_var"])
+    return out

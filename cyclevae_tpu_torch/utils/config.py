@@ -51,10 +51,12 @@ class ModelConfig:
     posterior: str = "gauss"    # "gauss" | "laplace" (ref gru_vae.py:101-144)
     spk_src: str = "VCC2SF1"
     spk_trg: str = "VCC2TF1"
-    # perf knobs (numerics-affecting; defaults keep reference-f32 parity):
-    # use_pallas = fused Pallas AR-GRU fwd+bwd kernels, compute_dtype =
+    # perf knobs (numerics-affecting): use_pallas = the fused AR-GRU
+    # kernels (K1-K3, ops/cuda_gru.py; on CPU tensors their plain versions),
+    # on by default in the port, where the JAX package defaults to its XLA
+    # path; use_pallas=False asks for the plain scan.  compute_dtype =
     # "bfloat16" runs matmuls in bf16 with f32 master weights
-    use_pallas: bool = False
+    use_pallas: bool = True
     compute_dtype: str = "float32"
 
 

@@ -56,11 +56,13 @@ class CycleVAEConfig:
     do_prob: float = 0.5
     stdim: int = 4
     posterior: str = "gauss"    # "gauss" | "laplace" (reference gru_vae.py:101-144)
-    # perf knobs (numerics-affecting, off by default for reference parity):
-    # use_pallas routes the AR recurrence through the fused kernel
-    # (ops/cuda_gru.py); compute_dtype="bfloat16" rounds the products'
+    # perf knobs (numerics-affecting): use_pallas routes the AR recurrence
+    # through the fused kernels (ops/cuda_gru.py; on CPU tensors their plain
+    # versions), on by default in the port, where the JAX package defaults
+    # to its XLA path; use_pallas=False asks for the plain scan
+    # (ops/gru_scan.py).  compute_dtype="bfloat16" rounds the products'
     # operands to bf16 with float32 master weights
-    use_pallas: bool = False
+    use_pallas: bool = True
     compute_dtype: str = "float32"
 
     @property

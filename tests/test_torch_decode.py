@@ -152,7 +152,9 @@ def test_entry_points_need_cuda_unless_told(monkeypatch):
 
 def test_package_imports_without_jax():
     """Every module of the port imports with jax, optax, cyclevae_tpu and
-    h5py blocked, the vocoder slice's and the host DSP's among them."""
+    h5py blocked, the vocoder slice's, the host DSP's, and the recipe's
+    (the feature store, stats, train stage, recipe and the CLI module, which
+    runs nothing on import) among them."""
     code = (
         "import sys, importlib, pkgutil\n"
         "for m in ('jax', 'jaxlib', 'optax', 'cyclevae_tpu', 'h5py'):\n"
@@ -166,11 +168,17 @@ def test_package_imports_without_jax():
         "for m in ('models.wavernn', 'ops.cuda_wavernn', 'pipeline.vocoder_stage',\n"
         "          'pipeline.features', 'pipeline.decode', 'utils.wavio', 'interop',\n"
         "          'dsp', 'dsp._lib', 'dsp.sptk', 'dsp.world', 'dsp.dtw', 'dsp.mlpg',\n"
-        "          'dsp.torch_ops'):\n"
+        "          'dsp.torch_ops', 'utils.store', 'utils.prefetch', 'pipeline.stats',\n"
+        "          'pipeline.summary', 'pipeline.train_stage', 'pipeline.recipe', '__main__'):\n"
         "    assert 'cyclevae_tpu_torch.' + m in sys.modules, m\n"
         "import numpy as np\n"
         "from cyclevae_tpu_torch.dsp import sptk\n"
         "assert sptk.mc2sp(np.zeros((1, 25)), 0.455, 64).shape == (1, 33)\n"
+        "import os, tempfile\n"
+        "from cyclevae_tpu_torch.utils.store import read_store, write_store\n"
+        "path = os.path.join(tempfile.mkdtemp(), 's.npz')\n"
+        "write_store(path, '/lf0_range_mean', np.float64(4.5))\n"
+        "assert float(read_store(path, '/lf0_range_mean')) == 4.5\n"
         "print('imported', len([m for m in sys.modules if m.startswith('cyclevae_tpu_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
