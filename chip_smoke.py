@@ -50,7 +50,7 @@ Phases, one line or more each; any failure exits non-zero:
               wav files, the metrics, the host time of each stage, and the
               same analyses and draws through the plain path;
   7. recipe   the one-to-one recipe, ``run_stages`` over stages 1, a, 2, 3,
-              4, 5 and 6 in turn, at the flagship width (``ModelConfig``
+              4, 5, 6, i and v in turn, at the flagship width (``ModelConfig``
               defaults: the kernel route) on a corpus of two speech-like
               speakers made from the seed (8 parallel train-directory
               utterances of 1.5-2.5 s each, n_train 4, 1 eval utterance
@@ -60,6 +60,21 @@ Phases, one line or more each; any failure exits non-zero:
               every stage's artifacts; then epoch 1 of stage 4 and stage 5
               on the plain path (``use_pallas=False``) from the same seeds,
               held to the kernel run's epoch metrics and cvgv statistics;
+              then stages i and v: HMC over the source's eval latents (K2,
+              K3; K1 for the posterior predictive) and the hu896 WaveRNN for
+              2 epochs (a cuDNN GRU) with copy synthesis (K4), their launch
+              counts (per HMC step 2L + 2 K2 and 2L K3), times and
+              artifacts; then the teacher-forced WaveRNN loss and gradient
+              on one batch of the recipe's clips, cuDNN against the plain
+              loop on the card;
+  8. infer    posterior inference at full width (hu1024, an 800-frame
+              utterance, random weights from the seed): the log-joint's
+              value and gradient at 8 chains and 1, float32 and bf16, and 3
+              HMC steps on replayed draws, kernel route against the plain
+              path (``use_pallas=False``); short NUTS and batched NUTS runs,
+              SMC over 256 particles; K2 and K3 at B=8 and B=1 and K1 at
+              B=16 timed beside their bounds; the largest batch K1, K2 and K3
+              plan;
 then the card's name and power limit, one JSON line of the kernels, and as
 the last line ``{"ok": true, "device": {...}}``.
 
@@ -70,6 +85,7 @@ and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import json
 import os
 import subprocess
@@ -156,6 +172,32 @@ RECIPE_EVAL_SECONDS = 2.0
 #   statistics within 1e-3 relative
 RECIPE_TRAIN_REL = LOSS_F32_ALL
 RECIPE_CVGV_REL = 1e-3
+# stages i and v of the recipe after stages 1-6: stage i at its defaults
+# (HMC, 8 chains, 100 + 100 steps of 8 leapfrogs, 16 predictive draws) on the
+# source speaker's eval utterance; stage v at its defaults (the hu896
+# WaveRNN, 96-frame clips, batch 8, copy synthesis at temperature 0.8) but 2
+# epochs
+RECIPE_STAGES = "1a23456iv"
+RECIPE_VOC_EPOCHS = 2
+RECIPE_VOC_HU, RECIPE_VOC_CLIP = 896, 96       # run_stages' vocoder defaults
+#   the teacher-forced WaveRNN loss, cuDNN's GRU against the plain loop on
+#   one batch of the recipe's clips: the loss within 1e-5 relative (float32
+#   sums of 10,584 steps in another order), every gradient within 2e-4 of
+#   its largest value (GRAD_SCALE_TOL)
+TF_LOSS_REL = 1e-5
+# phase 8, posterior inference at full width: an eval-length utterance of
+# 800 frames (4 s), the stage's 8 chains and a single chain; the log-joint's
+# value against the plain path within 1e-5 relative in float32 (the JAX
+# package's ELBO bound is 2e-4; here sums of 40,000 |residuals| whose terms
+# differ by ~1e-6), its gradient within GRAD_SCALE_TOL of its largest value;
+# bf16 within the bf16 bounds; 3 HMC steps of 4 leapfrogs on replayed draws,
+# kernel against plain: the same accepts, z within 1e-3 relative L2
+T_INFER = 800
+INFER_CHAINS = (8, 1)
+INFER_OBS_SCALE = 50.0              # the stage's obs_scale
+LOGJOINT_F32_REL = 1e-5
+HMC_Z_REL = 1e-3
+SMC_PARTICLES = 256
 
 
 def log(msg: str) -> None:
@@ -959,9 +1001,10 @@ def phase_recipe(dev):
     import tempfile
 
     from cyclevae_tpu_torch.dsp import _lib as dsp_lib
-    from cyclevae_tpu_torch.models import gru_vae
+    from cyclevae_tpu_torch.models import gru_vae, wavernn
     from cyclevae_tpu_torch.ops.cuda_gru import cuda_gru_ar, cuda_gru_ar_bwd, cuda_gru_ar_train
-    from cyclevae_tpu_torch.pipeline import decode, recipe, train_stage
+    from cyclevae_tpu_torch.ops.cuda_wavernn import cuda_wavernn_generate
+    from cyclevae_tpu_torch.pipeline import decode, infer_stage, recipe, train_stage, vocoder_stage
     from cyclevae_tpu_torch.utils.config import ExperimentConfig, ModelConfig, TrainConfig
     from cyclevae_tpu_torch.utils.store import read_store
     from cyclevae_tpu_torch.utils.wavio import write_wav
@@ -978,16 +1021,27 @@ def phase_recipe(dev):
         f"n_cyc{cfg.n_cyc} {cfg.compute_dtype} use_pallas {cfg.use_pallas}; bsu "
         f"{exp.train.batch_size_utt}, {exp.train.epoch_count} epochs, n_train {RECIPE_N_TRAIN}")
 
-    # instruments, removed in the finally below: calls of the plain scan,
-    # the time and real frames of each train step, the time of each stage-6
-    # request's analysis and conversion
+    # instruments, removed in the finally below: calls of the plain scan and
+    # of the WaveRNN's two teacher-forced routes, the time and real frames of
+    # each train step, the time of each stage-6 request's analysis and
+    # conversion, of each stage-i utterance and each stage-v synthesis
     scans, steps, analyses, requests = [0], [], [], []
+    tf_calls, posteriors, syntheses = {"plain": 0, "cudnn": 0}, [], []
     orig = {"scan": gru_vae.gru_ar_scan, "step": train_stage.make_train_step,
-            "analyze": decode.analyze_pair, "decode": decode.decode_pair}
+            "analyze": decode.analyze_pair, "decode": decode.decode_pair,
+            "plain_tf": wavernn.plain_recurrence, "cudnn_tf": wavernn.cudnn_recurrence,
+            "posterior": infer_stage.posterior_convert_hmc,
+            "synth": vocoder_stage.synthesize_vocoder}
 
     def counted_scan(*a, **k):
         scans[0] += 1
         return orig["scan"](*a, **k)
+
+    def counted(name, fn):
+        def call(*a, **k):
+            tf_calls[name] += 1
+            return fn(*a, **k)
+        return call
 
     def timed_make_step(cfg_, opt, seg_len, n_segs):
         step = orig["step"](cfg_, opt, seg_len, n_segs)
@@ -1011,7 +1065,7 @@ def phase_recipe(dev):
         return timed
 
     ok = True
-    totals = {"K1": 0, "K2": 0, "K3": 0}
+    totals = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_recipe") as tmp:
         # ---- the corpus, made from the seed ----
         wav_root, conf = os.path.join(tmp, "wav"), os.path.join(tmp, "conf")
@@ -1038,27 +1092,44 @@ def phase_recipe(dev):
         train_stage.make_train_step = timed_make_step
         decode.analyze_pair = timed_call(orig["analyze"], analyses)
         decode.decode_pair = timed_call(orig["decode"], requests)
+        wavernn.plain_recurrence = counted("plain", orig["plain_tf"])
+        wavernn.cudnn_recurrence = counted("cudnn", orig["cudnn_tf"])
+        infer_stage.posterior_convert_hmc = timed_call(orig["posterior"], posteriors)
+        vocoder_stage.synthesize_vocoder = timed_call(orig["synth"], syntheses)
         stage_runs = {}
         try:
-            for stage in "1a23456":
+            for stage in RECIPE_STAGES:
                 cuda_gru_ar.launches = cuda_gru_ar_train.launches = cuda_gru_ar_bwd.launches = 0
-                scans[0] = 0
+                cuda_wavernn_generate.launches = 0
+                scans[0] = tf_calls["plain"] = tf_calls["cudnn"] = 0
                 t0 = time.perf_counter()
-                recipe.run_stages(stage, exp, paths, conf_dir=conf, n_jobs=8, device=dev)
+                recipe.run_stages(stage, exp, paths, conf_dir=conf, n_jobs=8, device=dev,
+                                  vocoder_epochs=RECIPE_VOC_EPOCHS,
+                                  vocoder_hidden_units=RECIPE_VOC_HU,
+                                  vocoder_clip_frames=RECIPE_VOC_CLIP)
+                torch.cuda.synchronize()
                 sec = time.perf_counter() - t0
                 stage_runs[stage] = dict(sec=sec, K1=cuda_gru_ar.launches,
                                          K2=cuda_gru_ar_train.launches,
-                                         K3=cuda_gru_ar_bwd.launches, scan=scans[0])
+                                         K3=cuda_gru_ar_bwd.launches,
+                                         K4=cuda_wavernn_generate.launches, scan=scans[0],
+                                         tf_plain=tf_calls["plain"], tf_cudnn=tf_calls["cudnn"])
                 for k in totals:
                     totals[k] += stage_runs[stage][k]
                 log(f"[recipe] stage {stage}: {sec:.2f} s host; launches K1 "
                     f"{cuda_gru_ar.launches}, K2 {cuda_gru_ar_train.launches}, K3 "
-                    f"{cuda_gru_ar_bwd.launches}; plain scan calls {scans[0]}")
+                    f"{cuda_gru_ar_bwd.launches}, K4 {cuda_wavernn_generate.launches}; plain "
+                    f"scan calls {scans[0]}; teacher-forced WaveRNN calls: cuDNN "
+                    f"{tf_calls['cudnn']}, plain loop {tf_calls['plain']}")
         finally:
             gru_vae.gru_ar_scan = orig["scan"]
             train_stage.make_train_step = orig["step"]
             decode.analyze_pair = orig["analyze"]
             decode.decode_pair = orig["decode"]
+            wavernn.plain_recurrence = orig["plain_tf"]
+            wavernn.cudnn_recurrence = orig["cudnn_tf"]
+            infer_stage.posterior_convert_hmc = orig["posterior"]
+            vocoder_stage.synthesize_vocoder = orig["synth"]
 
         # ---- stage 4's steps and stage 6's request ----
         secs = [t for t, _, _ in steps]
@@ -1075,6 +1146,31 @@ def phase_recipe(dev):
             + ", ".join(f"{t * 1e3:.1f}" for t in requests)
             + f" ms; {speech_s:.3f} s of source speech, real-time factor "
             f"{request_s / speech_s:.3f} (stage {stage_runs['6']['sec'] / speech_s:.3f})")
+        hmc_cfg, n_pred = (inspect.signature(orig["posterior"]).parameters[k].default
+                           for k in ("hmc", "n_predictive"))
+        n_post = len(eval_wavs[src][:4])
+        hmc_steps = hmc_cfg.n_warmup + hmc_cfg.n_samples
+        grads = stage_runs["i"]["K3"]
+        log(f"[recipe] stage i: {n_post} utterance(s) of HMC ({hmc_steps} steps of "
+            f"{hmc_cfg.n_leapfrog} leapfrogs, 8 chains), s per utterance "
+            + ", ".join(f"{t:.2f}" for t in posteriors)
+            + f"; {grads} gradient evaluations, {grads / max(sum(posteriors), 1e-9):.1f} per s; "
+            f"{sum(posteriors) / max(n_post * hmc_steps, 1) * 1e3:.1f} ms per HMC step")
+        vexpdir = os.path.join(paths.work, "exp", f"vocoder_{trg}_hu{RECIPE_VOC_HU}")
+        with open(os.path.join(vexpdir, "history.json")) as f:
+            voc_hist = json.load(f)["history"]
+        voc_train = paths.wavs(trg)[:RECIPE_N_TRAIN]
+        voc_steps = -(-len(voc_train) // 8)         # run_train_vocoder's batch of 8
+        voc_samples = 8 * vocoder_stage.n_samples_for(wavernn.WaveRNNConfig(), RECIPE_VOC_CLIP)
+        voc_step_s = [h["sec"] / voc_steps for h in voc_hist]
+        trg_speech_s = sum(len(_read_wav_samples(w)) for w in eval_wavs[trg][:5]) / fs
+        log(f"[recipe] stage v: {len(voc_hist)} epochs of {voc_steps} train step(s) (batch 8 "
+            f"x {RECIPE_VOC_CLIP} frames, {voc_samples} samples), s per step "
+            + ", ".join(f"{t:.3f}" for t in voc_step_s) + ", samples/s "
+            + ", ".join(f"{voc_samples / t:.0f}" for t in voc_step_s)
+            + "; copy synthesis " + ", ".join(f"{t:.3f}" for t in syntheses)
+            + f" s for {trg_speech_s:.3f} s of speech (real-time factor "
+            f"{sum(syntheses) / trg_speech_s:.3f})")
 
         # ---- every stage's artifacts ----
         wavs = [w for spk in RECIPE_SPEAKERS for e in (False, True) for w in paths.wavs(spk, e)]
@@ -1114,29 +1210,61 @@ def phase_recipe(dev):
         want_len["e0_DiffGV.wav"] = len(_read_wav_samples(eval_wavs[src][0]))
         art["wavs"] = sorted(out_wavs) == sorted(want_len) and all(
             len(y) == want_len[n] and np.abs(y).max() > 0 for n, y in out_wavs.items())
+        post = os.path.join(expdir, f"posterior_ep{best}.npz")
+        post_frames = {os.path.basename(f)[:-4]: len(read_store(f, "/feat_org_lf0"))
+                       for f in paths.h5s(src, True)[:4]}
+        art["posterior"] = all(
+            read_store(post, f"/{b}/{k}").shape == (n, dim)
+            and np.isfinite(read_store(post, f"/{b}/{k}")).all()
+            for b, n in post_frames.items()
+            for k, dim in (("z_mean", cfg.lat_dim), ("z_std", cfg.lat_dim),
+                           ("cv_mcep_mean", cfg.out_dim), ("cv_mcep_std", cfg.out_dim)))
+        with open(os.path.join(vexpdir, "vocoder_eval.json")) as f:
+            voc_eval = json.load(f)
+        cs = voc_eval["copy_synthesis"]
+        art["vocoder"] = (
+            [h["epoch"] for h in voc_hist] == list(range(1, RECIPE_VOC_EPOCHS + 1))
+            and all(np.isfinite(h["nll"]) for h in voc_hist)
+            and voc_eval["final_nll"] == voc_hist[-1]["nll"]
+            and all(os.path.exists(os.path.join(vexpdir, f"checkpoint-{n}.pkl"))
+                    for n in ("latest", str(RECIPE_VOC_EPOCHS)))
+            and len(cs) == 8 and np.isfinite(cs["mcd"]) and 0 <= cs["uv_agree"] <= 1
+            and all(len(_read_wav_samples(os.path.join(vexpdir, "wav_vocoded",
+                                                       os.path.basename(w)))) > 0
+                    for w in eval_wavs[trg][:5]))
         ok &= all(art.values())
         log("[recipe] artifacts: " + ", ".join(f"{k} {v}" for k, v in art.items())
             + f"; best epoch {best} (criterion {hist['best']['criterion']:.4f}); decode "
-            + ", ".join(f"{k} {dm[k]:.4f}" for k in ("mcdpow_cv", "mcd_cv", "mcd_cvgv", "lat_rmse")))
+            + ", ".join(f"{k} {dm[k]:.4f}" for k in ("mcdpow_cv", "mcd_cv", "mcd_cvgv", "lat_rmse"))
+            + f"; vocoder nll {voc_hist[0]['nll']:.4f} -> {voc_hist[-1]['nll']:.4f}, copy "
+            + ", ".join(f"{k} {cs[k]:.4f}" for k in ("mcdpow", "mcd", "f0_rel_err_median",
+                                                     "uv_agree")))
 
         # ---- the launches of each stage ----
         r = stage_runs
         # 4 AR-GRU calls per cycle: K2 and K3 per valid segment of a train
         # step, K1 per eval batch (one source and one target batch an epoch);
-        # stage 5: 2 K1 launches per training utterance; stage 6: 2 per pair
+        # stage 5: 2 K1 launches per training utterance; stage 6: 2 per pair;
+        # stage i per utterance and HMC step (2L + 2) K2 and 2L K3, and one K1
+        # for the posterior predictive; stage v one K4 per eval utterance,
+        # one cuDNN teacher-forced call per train step, no plain loop
+        want = {st: dict(K1=0, K2=0, K3=0, K4=0, scan=0, tf_plain=0, tf_cudnn=0)
+                for st in RECIPE_STAGES}
         want_k2 = 4 * cfg.n_cyc * sum(v for _, _, v in steps)
-        want_k1 = {"4": RECIPE_EPOCHS * 2 * 4 * cfg.n_cyc,
-                   "5": 2 * 2 * RECIPE_N_TRAIN, "6": 2 * len(eval_wavs[src])}
-        launches_ok = (r["4"]["K2"] == r["4"]["K3"] == want_k2 > 0
-                       and all(r[s]["K1"] == want_k1.get(s, 0) for s in r)
-                       and all(r[s]["K2"] == r[s]["K3"] == 0 for s in r if s != "4")
-                       and all(r[s]["scan"] == 0 for s in r))
+        want["4"].update(K1=RECIPE_EPOCHS * 2 * 4 * cfg.n_cyc, K2=want_k2, K3=want_k2)
+        want["5"]["K1"] = 2 * 2 * RECIPE_N_TRAIN
+        want["6"]["K1"] = 2 * len(eval_wavs[src])
+        want["i"].update(K1=n_post, K2=n_post * hmc_steps * (2 * hmc_cfg.n_leapfrog + 2),
+                         K3=n_post * hmc_steps * 2 * hmc_cfg.n_leapfrog)
+        want["v"].update(K4=len(eval_wavs[trg][:5]), tf_cudnn=RECIPE_VOC_EPOCHS * voc_steps)
+        launches_ok = want_k2 > 0 and all(r[st][k] == v for st, w in want.items()
+                                          for k, v in w.items())
         ok &= launches_ok
-        log(f"[recipe] launches: stage 4 K2 {r['4']['K2']}, K3 {r['4']['K3']} (want "
-            f"{want_k2} each), K1 "
-            f"{r['4']['K1']} (want {want_k1['4']}); stage 5 K1 {r['5']['K1']} (want "
-            f"{want_k1['5']}); stage 6 K1 {r['6']['K1']} (want {want_k1['6']}); plain scan "
-            f"calls {sum(x['scan'] for x in r.values())} (want 0) "
+        for st in RECIPE_STAGES:
+            if any(want[st].values()) or any(r[st][k] for k in want[st]):
+                log(f"[recipe] launches stage {st}: "
+                    + ", ".join(f"{k} {r[st][k]} (want {v})" for k, v in want[st].items()))
+        log(f"[recipe] launches and calls of every stage as wanted "
             f"{'ok' if launches_ok else 'FAIL'}")
 
         # ---- the plain path from the same seeds: epoch 1 of stage 4, then stage 5 ----
@@ -1170,8 +1298,298 @@ def phase_recipe(dev):
             f"{RECIPE_TRAIN_REL}; stage 4 plain, 1 epoch: {plain4_s:.1f} s); cvgv statistics max "
             f"rel {cvgv_rel:.3e} (< {RECIPE_CVGV_REL}; stage 5 plain: {plain5_s:.1f} s) "
             f"{'ok' if plain_ok else 'FAIL'}")
+        ok &= _teacher_forced_check(dev, os.path.join(vexpdir, "checkpoint-latest.pkl"),
+                                    voc_train, paths.h5s(trg)[:RECIPE_N_TRAIN])
     log(f"[recipe] {'ok' if ok else 'FAIL'}")
     return ok, totals
+
+
+def _teacher_forced_check(dev, ckpt_path: str, wavs, feats) -> bool:
+    """The teacher-forced WaveRNN loss and its gradient on one batch of the
+    recipe's clips (batch 8 x RECIPE_VOC_CLIP frames) with stage v's weights:
+    cuDNN's GRU (the route on the card) against the plain loop on the card."""
+    from cyclevae_tpu_torch.models import wavernn
+    from cyclevae_tpu_torch.pipeline.dataset_mult import NeuVocoDataset
+    from cyclevae_tpu_torch.pipeline.vocoder_stage import sample_clips
+    from cyclevae_tpu_torch.vi.checkpoint import load_checkpoint
+
+    cfg = wavernn.WaveRNNConfig(hidden_units=RECIPE_VOC_HU)
+    saved = load_checkpoint(ckpt_path)["params"]
+    ds = NeuVocoDataset(wavs, feats, cfg.hop)
+    f, w = sample_clips(ds, np.arange(8) % len(ds), RECIPE_VOC_CLIP, cfg,
+                        np.random.default_rng(SEED))
+    f, w = f.to(dev), w.to(dev)
+
+    def run():
+        params = {k: ({kk: torch.as_tensor(vv, device=dev).requires_grad_()
+                       for kk, vv in v.items()} if isinstance(v, dict)
+                      else torch.as_tensor(v, device=dev).requires_grad_())
+                  for k, v in saved.items()}
+        leaves = list(_leaves(params))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with wavernn.full_f32_cudnn():
+            loss = wavernn.wavernn_loss(params, cfg, f, w)
+            grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return float(loss.detach()), grads, time.perf_counter() - t0
+
+    loss_c, g_c, sec_c = run()
+    cudnn = wavernn.cudnn_recurrence
+    wavernn.cudnn_recurrence = wavernn.plain_recurrence
+    try:
+        loss_p, g_p, sec_p = run()
+    finally:
+        wavernn.cudnn_recurrence = cudnn
+    loss_rel = abs(loss_c - loss_p) / abs(loss_p)
+    grad_err = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(g_c, g_p))
+    good = loss_rel < TF_LOSS_REL and grad_err <= GRAD_SCALE_TOL
+    log(f"[recipe] teacher-forced WaveRNN, batch 8 x {w.shape[1]} samples: cuDNN loss "
+        f"{loss_c:.6f} in {sec_c:.3f} s, plain loop {loss_p:.6f} in {sec_p:.3f} s (forward and "
+        f"gradient); loss rel {loss_rel:.3e} (< {TF_LOSS_REL}), gradients max err / scale "
+        f"{grad_err:.3e} (<= {GRAD_SCALE_TOL}) {'ok' if good else 'FAIL'}")
+    return good
+
+
+def recorded_draws(generator: torch.Generator):
+    """A ``Draws`` whose numbers come from ``generator`` on the first pass
+    and are replayed on the next (after ``.replay()``), so that the kernel
+    route and the plain path see the same momenta and uniforms."""
+    from cyclevae_tpu_torch.infer import Draws
+
+    class Recorded(Draws):
+        def __init__(self, gen):
+            super().__init__(gen)
+            self.tape, self.at = [], None
+
+        def replay(self):
+            self.at = 0
+
+        def _draw(self, fresh, shape):
+            if self.at is None:
+                self.tape.append(fresh(shape))
+                return self.tape[-1]
+            self.at += 1
+            return self.tape[self.at - 1]
+
+        def normal(self, shape):
+            return self._draw(super().normal, shape)
+
+        def uniform(self, shape):
+            return self._draw(super().uniform, shape)
+
+    return Recorded(generator)
+
+
+def _largest_planned(plan_fn, limit: int = 4096) -> int:
+    """The largest batch B for which ``plan_fn(B)`` makes a plan (it raises
+    where B rows do not fit), by doubling and then bisection."""
+    def fits(b):
+        try:
+            plan_fn(b)
+            return True
+        except RuntimeError:
+            return False
+    if not fits(1):
+        return 0
+    lo = 1
+    while lo < limit and fits(2 * lo):
+        lo *= 2
+    hi = 2 * lo                      # lo fits, hi does not (or is past the limit)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
+
+
+def phase_infer(dev):
+    """Posterior inference at full width (stage i's samplers on the flagship
+    hu1024 CycleVAE, random weights from the seed, on an eval-length
+    utterance): the log-joint's value and gradient and 3 HMC steps, kernel
+    route against the plain path; short NUTS, batched NUTS and SMC runs; K2
+    and K3 at the chain counts and K1 at the predictive's, timed beside their
+    bounds; the largest chain count K2 and K3 plan."""
+    from cyclevae_tpu_torch.infer import (Draws, HMCConfig, NUTSConfig, hmc_sample_batch,
+                                          make_utterance_logjoint_batched, nuts_sample,
+                                          nuts_sample_batch)
+    from cyclevae_tpu_torch.infer.logjoint import value_and_grad
+    from cyclevae_tpu_torch.ops import _build
+    from cyclevae_tpu_torch.ops.cuda_gru import (cuda_gru_ar, cuda_gru_ar_bwd,
+                                                 cuda_gru_ar_train, gru_ar_bwd_reference,
+                                                 gru_ar_reference, gru_ar_train_reference, plan,
+                                                 plan_bwd)
+    from cyclevae_tpu_torch.ops.gru_scan import precompute_input_gates
+    from cyclevae_tpu_torch.pipeline.infer_stage import posterior_marginal_smc
+    from cyclevae_tpu_torch.vi.train import CycleVAEConfig, init_cyclevae
+
+    def counts():
+        return {"K1": cuda_gru_ar.launches, "K2": cuda_gru_ar_train.launches,
+                "K3": cuda_gru_ar_bwd.launches}
+
+    def zero():
+        cuda_gru_ar.launches = cuda_gru_ar_train.launches = cuda_gru_ar_bwd.launches = 0
+
+    ok, results = True, {}
+    rng = np.random.default_rng(SEED + 80)
+    stats = synth_features(rng, 4000)
+    mean, scale = stats.mean(axis=0), stats.std(axis=0) + 1e-3
+    cfg = CycleVAEConfig(hidden_units=H)
+    params = init_cyclevae(torch.Generator(device=dev).manual_seed(SEED + 80), cfg, mean, scale,
+                           device=dev)
+    feats = torch.as_tensor(synth_features(rng, T_INFER), device=dev)
+    code = torch.zeros((T_INFER, cfg.n_spk), device=dev)
+    code[:, 0] = 1.0
+    log(f"[infer] flagship hl{cfg.hidden_layers} hu{cfg.hidden_units} ld{cfg.lat_dim}, an "
+        f"utterance of {T_INFER} frames, obs_scale {INFER_OBS_SCALE}")
+
+    def logjoint(**kw):
+        return make_utterance_logjoint_batched(params, dataclasses.replace(cfg, **kw), feats,
+                                               code, obs_scale=INFER_OBS_SCALE)
+
+    # ---- the log-joint's value and gradient, kernel route against the plain path ----
+    gen = torch.Generator(device=dev).manual_seed(SEED + 81)
+    for C in INFER_CHAINS:
+        z = 0.5 * torch.randn((C, T_INFER, cfg.lat_dim), generator=gen, device=dev)
+        for dt in ("float32", "bfloat16"):
+            zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v_k, g_k = value_and_grad(logjoint(compute_dtype=dt), z)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            n = counts()
+            v_p, g_p = value_and_grad(logjoint(compute_dtype=dt, use_pallas=False), z)
+            val_rel = float(((v_k - v_p).abs() / v_p.abs()).max())
+            grad_err = float((g_k - g_p).abs().max() / g_p.abs().max())
+            rl2, cos = rel_l2(g_k, g_p), cosine(g_k, g_p)
+            finite = bool(torch.isfinite(v_k).all() and torch.isfinite(g_k).all())
+            good = finite and n == {"K1": 0, "K2": 1, "K3": 1} and (
+                val_rel < LOGJOINT_F32_REL and grad_err <= GRAD_SCALE_TOL if dt == "float32"
+                else val_rel < BF16_REL_L2 and rl2 < BF16_REL_L2 and cos > BF16_COS)
+            ok &= good
+            log(f"[infer] log-joint C={C} {dt}: value {float(v_k[0]):.3f} in {sec * 1e3:.1f} ms "
+                f"with its gradient (K2 {n['K2']}, K3 {n['K3']}); vs plain path: value rel "
+                f"{val_rel:.3e}, gradient max err / scale {grad_err:.3e}, rel_l2 {rl2:.3e}, cos "
+                f"{cos:.6f} {'ok' if good else 'FAIL'}")
+
+    # ---- 3 HMC steps on replayed draws, kernel route against the plain path ----
+    # one warmup step from a small step size (dual averaging then moves it
+    # ~15x, to the stage's scale), two sampling steps
+    hcfg = HMCConfig(step_size=0.002, n_leapfrog=4, n_warmup=1, n_samples=2, adapt_mass=False)
+    C = INFER_CHAINS[0]
+    z0 = torch.zeros((C, T_INFER, cfg.lat_dim), device=dev)
+    draws = recorded_draws(torch.Generator(device=dev).manual_seed(SEED + 82))
+    zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_k, info_k = hmc_sample_batch(draws, logjoint(), z0, hcfg)
+    torch.cuda.synchronize()
+    sec_k = time.perf_counter() - t0
+    n = counts()
+    draws.replay()
+    t0 = time.perf_counter()
+    s_p, info_p = hmc_sample_batch(draws, logjoint(use_pallas=False), z0, hcfg)
+    torch.cuda.synchronize()
+    sec_p = time.perf_counter() - t0
+    moved = lambda s_: (torch.diff(torch.cat([z0[None], s_]), dim=0).abs().amax(dim=(2, 3)) > 0)
+    acc_k, acc_p = moved(s_k), moved(s_p)
+    z_rel = rel_l2(s_k, s_p)
+    steps = 1 + hcfg.n_samples
+    want_n = {"K1": 0, "K2": steps * (2 * hcfg.n_leapfrog + 2), "K3": steps * 2 * hcfg.n_leapfrog}
+    good = bool(torch.equal(acc_k, acc_p)) and z_rel < HMC_Z_REL and n == want_n
+    ok &= good
+    log(f"[infer] HMC C={C}, {steps} steps of {hcfg.n_leapfrog} leapfrogs: kernel route "
+        f"{sec_k:.3f} s (K2 {n['K2']}, K3 {n['K3']}; want {want_n['K2']}, {want_n['K3']}), plain "
+        f"path {sec_p:.3f} s; accepts {acc_k.int().tolist()} vs {acc_p.int().tolist()}, z rel_l2 "
+        f"{z_rel:.3e} (< {HMC_Z_REL}), accept prob {float(info_k['accept_prob']):.4f} vs "
+        f"{float(info_p['accept_prob']):.4f} {'ok' if good else 'FAIL'}")
+
+    # ---- short NUTS runs (kernel route), SMC ----
+    ncfg = NUTSConfig(step_size=0.02, max_depth=3, n_warmup=2, n_samples=2)
+    lj = logjoint()
+    for name, run in (("NUTS C=1", lambda d: nuts_sample(d, lambda z: lj(z[None])[0], z0[0],
+                                                           ncfg)),
+                      (f"batched NUTS C={C}", lambda d: nuts_sample_batch(d, lj, z0, ncfg))):
+        zero()
+        t0 = time.perf_counter()
+        s_n, info_n = run(Draws(torch.Generator(device=dev).manual_seed(SEED + 83)))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        n = counts()
+        good = bool(torch.isfinite(s_n).all()) and n["K2"] == n["K3"] > 0
+        ok &= good
+        log(f"[infer] {name}: {ncfg.n_warmup} + {ncfg.n_samples} transitions (max depth "
+            f"{ncfg.max_depth}) in {sec:.3f} s, K2 {n['K2']}, K3 {n['K3']} (one value and "
+            f"gradient a leaf), mean leapfrogs {float(info_n['mean_leapfrog']):.2f}, accept stat "
+            f"{float(info_n['accept_stat']):.4f}, samples finite {'ok' if good else 'FAIL'}")
+    zero()
+    t0 = time.perf_counter()
+    smc = posterior_marginal_smc(params, cfg, feats.cpu().numpy(), 0,
+                                 Draws(torch.Generator(device=dev).manual_seed(SEED + 84)),
+                                 n_particles=SMC_PARTICLES, obs_scale=INFER_OBS_SCALE)
+    sec = time.perf_counter() - t0
+    n = counts()
+    good = (np.isfinite(smc["log_marginal"]) and 0 < smc["mean_ess"] <= SMC_PARTICLES
+            and n == {"K1": 0, "K2": 0, "K3": 0})
+    ok &= good
+    log(f"[infer] SMC, {SMC_PARTICLES} particles over {T_INFER} frames: {sec:.3f} s, log "
+        f"marginal {smc['log_marginal']:.2f}, mean ESS {smc['mean_ess']:.1f}, resample rate "
+        f"{smc['resample_rate']:.3f}; no kernel (launches {n}) {'ok' if good else 'FAIL'}")
+
+    # ---- K2 and K3 at the chain counts, K1 at the predictive's, timed ----
+    layer, proj = params.decoder["gru"][0], params.decoder["out"]
+    out, conv_dim = cfg.out_dim, cfg.dec_cfg.conv_dim
+    wdt = torch.float32
+    for kname, B in (("gru_ar_train", 8), ("gru_ar_train", 1), ("gru_ar_bwd", 8),
+                     ("gru_ar_bwd", 1), ("gru_ar", 16)):
+        gx = precompute_input_gates(layer, torch.randn((B, T_INFER, conv_dim), generator=gen,
+                                                       device=dev))
+        y0 = 0.5 * torch.randn((B, out), generator=gen, device=dev)
+        h0 = torch.zeros((B, H), device=dev)
+        mask = torch.ones((B, T_INFER, H), device=dev)
+        if kname == "gru_ar":
+            args = (layer, proj, gx, y0, h0, wdt)
+            fn, ref, tol = cuda_gru_ar, gru_ar_reference, F32_ATOL
+            bound_ms, bound_by = gru_ar_bound_ms(B, T_INFER, out, wdt)
+        elif kname == "gru_ar_train":
+            args = (layer, proj, gx, y0, h0, mask, wdt)
+            fn, ref, tol = cuda_gru_ar_train, gru_ar_train_reference, F32_ATOL
+            bound_ms, bound_by = gru_ar_train_bound_ms(B, T_INFER, out, wdt)
+        else:
+            trj, _, _, h_seq = gru_ar_train_reference(layer, proj, gx, y0, h0, mask, wdt)
+            args = (proj["w"], layer["w_hh"], layer["w_ih"][:, conv_dim:], layer["b_hh"],
+                    torch.randn((B, T_INFER, out), generator=gen, device=dev), gx,
+                    torch.cat([y0[:, None], trj[:, :-1]], dim=1),
+                    torch.cat([h0[:, None], h_seq[:, :-1]], dim=1), mask,
+                    torch.zeros((B, H), device=dev), torch.zeros((B, out), device=dev))
+            fn, ref, tol = cuda_gru_ar_bwd, gru_ar_bwd_reference, GRAD_SCALE_TOL
+            bound_ms, bound_by = gru_ar_bwd_bound_ms(B, T_INFER, out, wdt)
+        got, want = fn(*args), ref(*args)
+        torch.cuda.synchronize()
+        err, rl2, cos, good = _match(got, want, wdt, tol)
+        ms = cuda_ms(lambda: fn(*args), iters=5, warmup=1)
+        plain_ms = cuda_ms(lambda: ref(*args), iters=1, warmup=0)
+        key = f"{kname}/B{B}/T{T_INFER}/float32"
+        results[key] = dict(B=B, T=T_INFER, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by, ok=good)
+        ok &= good
+        log(f"[infer] {key}: max_abs={err:.3e} kernel={ms:.3f} ms ({ms * 1e3 / T_INFER:.2f} "
+            f"us/step) plain={plain_ms:.1f} ms bound={bound_ms:.4f} ms ({bound_by}) "
+            f"{'ok' if good else 'FAIL'}")
+
+    # ---- the largest chain count K2 and K3 plan at H=1024 ----
+    for wdt in (torch.float32, torch.bfloat16):
+        c2 = _largest_planned(lambda b: plan(_build.load("gru_ar"), b, H, out, wdt, train=True))
+        c3 = _largest_planned(lambda b: plan_bwd(_build.load("gru_ar_bwd"), b, H, out, wdt))
+        c1 = _largest_planned(lambda b: plan(_build.load("gru_ar"), b, H, out, wdt))
+        results[f"largest_C/{str(wdt).split('.')[-1]}"] = dict(K1=c1, K2=c2, K3=c3)
+        # stage i needs K1 at its 16 predictive draws, K2 and K3 at its 8 chains
+        good = c1 >= 16 and min(c2, c3) >= max(INFER_CHAINS)
+        ok &= good
+        log(f"[infer] largest batch planned at H={H} out={out} {str(wdt).split('.')[-1]}: K1 "
+            f"{c1}, K2 {c2}, K3 {c3} (more rows raise) {'ok' if good else 'FAIL'}")
+    log(f"[infer] {'ok' if ok else 'FAIL'}")
+    return ok, results
 
 
 def _read_wav_samples(path: str) -> np.ndarray:
@@ -1212,10 +1630,12 @@ def main() -> int:
     vocode_ok, k4_launches = phase_vocode(dev)
     wav_ok, wav_launches = phase_convert_wav(dev)
     recipe_ok, recipe_launches = phase_recipe(dev)
+    infer_ok, _ = phase_infer(dev)
     launches += wav_launches + recipe_launches["K1"]
     k2_launches += recipe_launches["K2"]
     k3_launches += recipe_launches["K3"]
-    ok = (main_ok and train_ok and vocode_ok and wav_ok and recipe_ok and voc_kern_ok
+    k4_launches += recipe_launches["K4"]
+    ok = (main_ok and train_ok and vocode_ok and wav_ok and recipe_ok and infer_ok and voc_kern_ok
           and all(r["ok"] for r in kern.values())
           and all(r["ok"] for r in train_kern.values()))
 

@@ -5,9 +5,9 @@ PyTorch counterpart of ``cyclevae_tpu/models/wavernn.py``, same parameter
 dict (torch layout: GRU ``w_ih``/``w_hh`` (3H, in) with gate rows [r, z, n],
 dense ``w`` (out, in)) and same functions:
   * training is teacher-forced: the previous sample is ground truth, so the
-    only sequential op is the GRU hidden recurrence, a plain loop over
-    samples (autograd differentiates it); the input-side projections
-    (conditioning + embedded previous sample) are hoisted out of it;
+    only sequential op is the GRU hidden recurrence: one cuDNN GRU call on
+    the card, a plain loop over samples on the CPU (autograd differentiates
+    both; the loop hoists the input-side projections out of it);
   * the embedding side is fused with the GRU input projection: the previous
     sample takes one of ``n_classes`` values, so ``embed @ W_ih_embed^T`` is
     a (n_classes, 3H) gate table and generation needs a row gather per step;
@@ -19,6 +19,7 @@ dense ``w`` (out, in)) and same functions:
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from dataclasses import dataclass
 from fractions import Fraction
 from typing import Dict, Optional, Tuple
@@ -144,16 +145,64 @@ def teacher_forced_logits(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
                           prev_idx: torch.Tensor, h0: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward: cond (B, T, cond_dim), prev_idx (B, T) ground-truth
-    previous samples.  Returns (logits (B, T, n_classes), h_T)."""
-    B, T, _ = cond.shape
+    previous samples.  Returns (logits (B, T, n_classes), h_T).
+
+    On CUDA tensors the recurrence is one cuDNN GRU call
+    (``cudnn_recurrence``); on CPU tensors it is the plain loop
+    (``plain_recurrence``).  Both compute the same function."""
+    h0 = (torch.zeros((cond.shape[0], cfg.hidden_units), dtype=cond.dtype, device=cond.device)
+          if h0 is None else h0)
+    recurrence = plain_recurrence if cond.device.type == "cpu" else cudnn_recurrence
+    hs = recurrence(params, cfg, cond, prev_idx.long(), h0)
+    return _logits(params, hs), hs[:, -1]
+
+
+def plain_recurrence(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
+                     prev_idx: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """The teacher-forced GRU, one ``_gru_cell`` per sample with the input
+    gates hoisted: (B, T, cond_dim), (B, T) -> hidden states (B, T, H)."""
     H = cfg.hidden_units
-    gates_x = cond_gates(params, cfg, cond) + embed_gate_table(params)[prev_idx.long()]
-    h = torch.zeros((B, H), dtype=cond.dtype, device=cond.device) if h0 is None else h0
-    hs = []
-    for t in range(T):
+    gates_x = cond_gates(params, cfg, cond) + embed_gate_table(params)[prev_idx]
+    h, hs = h0, []
+    for t in range(cond.shape[1]):
         h = _gru_cell(gates_x[:, t], h, params["gru"]["w_hh"], params["gru"]["b_hh"], H)
         hs.append(h)
-    return _logits(params, torch.stack(hs, dim=1)), h
+    return torch.stack(hs, dim=1)
+
+
+def cudnn_recurrence(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
+                     prev_idx: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """The same recurrence as ``plain_recurrence`` in one cuDNN GRU call over
+    concat(embed[prev], cond) with the model's ``w_ih, w_hh, b_ih, b_hh``
+    (torch's GRU is this cell: gates [r, z, n], ``b_hh``'s n part inside
+    r * (...)).  The JAX package scans its cell with ``lax.scan``: no TPU
+    kernel computes this, so a library call is its counterpart here.
+
+    Runs in full float32: cuDNN's RNNs take TF32 from
+    ``torch.backends.cudnn.allow_tf32`` (True by default), so the call turns
+    it off (the backward pass runs under the caller's setting: callers that
+    train, ``run_train_vocoder``, turn it off around the backward too,
+    ``full_f32_cudnn``).  Raises where cuDNN is not there; no fallback."""
+    if not torch.backends.cudnn.is_available():
+        raise RuntimeError("the teacher-forced WaveRNN on CUDA needs cuDNN")
+    g = params["gru"]
+    x = torch.cat([params["embed"][prev_idx], cond], dim=-1)
+    with full_f32_cudnn():
+        hs, _ = torch._VF.gru(x, h0[None].contiguous(), [g["w_ih"], g["w_hh"], g["b_ih"], g["b_hh"]],
+                              True, 1, 0.0, torch.is_grad_enabled(), False, True)
+    return hs
+
+
+@contextmanager
+def full_f32_cudnn():
+    """cuDNN on, and TF32 off, for the body; both flags restored after."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.enabled, cudnn.allow_tf32
+    cudnn.enabled, cudnn.allow_tf32 = True, False
+    try:
+        yield
+    finally:
+        cudnn.enabled, cudnn.allow_tf32 = saved
 
 
 def wavernn_loss(params: Dict, cfg: WaveRNNConfig, feats: torch.Tensor,

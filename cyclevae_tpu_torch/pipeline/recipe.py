@@ -3,7 +3,7 @@ Python driver (stages selected by substring, run.sh:209-638).
 
 PyTorch counterpart of ``cyclevae_tpu/pipeline/recipe.py``, over the port's
 feature store (``.npz`` files; :mod:`cyclevae_tpu_torch.utils.store`).  The
-device stages (4, 5, 6) run on ``device``: CUDA unless the caller passes
+device stages (4, 5, 6, i, v) run on ``device``: CUDA unless the caller passes
 ``device="cpu"`` (``--device cpu``); without a CUDA device they raise.
 
 Stages:
@@ -14,8 +14,9 @@ Stages:
   4  CycleVAE training (K2 and K3 in the train steps, K1 in the eval epochs)
   5  GV calibration (cvgv; K1)
   6  decode eval utterances to waveforms (K1)
-  i  posterior inference over eval latents: not ported yet, raises
-  v  neural-vocoder training + copy-synthesis eval: not ported yet, raises
+  i  posterior inference over eval latents (HMC: K2 and K3; the
+     posterior predictive: K1)
+  v  neural-vocoder training (a cuDNN GRU) + copy-synthesis eval (K4)
 """
 
 from __future__ import annotations
@@ -118,20 +119,6 @@ def run_stages(stages: str, exp: ExperimentConfig, paths: RecipePaths,
                vocoder_multispk: bool = False,
                vocoder_lr_decay: bool = False, device=None):
     device = resolve_device(device)
-    # refuse the stages the port does not have before running any stage
-    if "i" in stages:
-        raise NotImplementedError(
-            "stage i (posterior inference over eval latents, infer/) is not "
-            "ported yet: ROADMAP.md Queue A item 6")
-    if "v" in stages:
-        raise NotImplementedError(
-            f"stage v (neural-vocoder training: a hu{vocoder_hidden_units} WaveRNN, "
-            f"{vocoder_epochs} epochs of {vocoder_clip_frames}-frame clips"
-            f"{', both speakers' if vocoder_multispk else ''}"
-            f"{', cosine lr decay' if vocoder_lr_decay else ''}"
-            f"{f', resumed from {vocoder_resume}' if vocoder_resume else ''}; "
-            f"copy synthesis of {vocoder_n_eval} eval utterances at temperature "
-            f"{vocoder_temperature}) is not ported yet: ROADMAP.md Queue A item 5")
     spk_src = exp.model.spk_src
     spk_trg = exp.model.spk_trg
     speakers = [spk_src, spk_trg]
@@ -230,7 +217,7 @@ def run_stages(stages: str, exp: ExperimentConfig, paths: RecipePaths,
             resume=exp.train.resume, device=device)
         logging.info("stage 4 done: best=%s", summary["best"])
 
-    if "5" in stages or "6" in stages:
+    if "5" in stages or "6" in stages or "i" in stages:
         from ..vi.checkpoint import load_checkpoint
         from .decode import Codec
         from .train_stage import model_config
@@ -344,6 +331,61 @@ def run_stages(stages: str, exp: ExperimentConfig, paths: RecipePaths,
             logging.info("stage 6 done: %s", {k: round(v, 3)
                                               for k, v in agg.items()})
 
+        if "i" in stages:
+            # posterior-inference stage (no reference counterpart): HMC
+            # posterior over eval utterance latents + posterior-predictive
+            # conversion stats written to posterior_ep<epoch>.npz
+            from .infer_stage import run_infer_stage
+            out_path = os.path.join(expdir, f"posterior_ep{epoch}.npz")
+            res = run_infer_stage(codec.params, codec.cfg, paths.h5s(spk_src, True)[:4],
+                                  out_path)
+            logging.info("stage i done: %s", res)
+
+    if "v" in stages:
+        # neural-vocoder stage (the reference defines the data surface,
+        # FeatureDatasetNeuVoco dataset.py:495-563, but ships no trainer):
+        # train the target speaker's WaveRNN on its train wav/feature pairs
+        # (vocoder_multispk: one model of both speakers' full train+pair sets
+        # under one-hot speaker-code conditioning), then score copy-synthesis
+        # on held-out eval utterances
+        from ..models.wavernn import WaveRNNConfig
+        from .vocoder_stage import eval_copy_synthesis, run_train_vocoder
+        spks = [spk_src, spk_trg] if vocoder_multispk else [spk_trg]
+        vcfg = WaveRNNConfig(hidden_units=vocoder_hidden_units,
+                             n_spk=len(spks) if vocoder_multispk else 0)
+        wavs, feats, spk_ids = [], [], []
+        for si, spk in enumerate(spks):
+            w, h = paths.wavs(spk), paths.h5s(spk)
+            if not vocoder_multispk:
+                w, h = w[:paths.n_train], h[:paths.n_train]
+            if len(w) != len(h) or not w:
+                raise RuntimeError(f"stage v: {len(w)} wavs and {len(h)} feature files of "
+                                   f"{spk}: run stage 1 first")
+            wavs += w
+            feats += h
+            spk_ids += [si] * len(w)
+        name = "multispk" if vocoder_multispk else spk_trg
+        vexpdir = os.path.join(paths.work, "exp", f"vocoder_{name}_hu{vcfg.hidden_units}")
+        res = run_train_vocoder(vcfg, wavs, feats, vexpdir, epochs=vocoder_epochs,
+                                clip_frames=vocoder_clip_frames, resume=vocoder_resume,
+                                spk_ids=spk_ids if vocoder_multispk else None,
+                                lr_decay=vocoder_lr_decay, device=device)
+        aggs = {spk: eval_copy_synthesis(
+            res["params"], vcfg, exp, paths.wavs(spk, eval_set=True)[:vocoder_n_eval],
+            _read_spk_conf(conf_dir, spk),
+            os.path.join(vexpdir, f"wav_vocoded_{spk}" if vocoder_multispk else "wav_vocoded"),
+            temperature=vocoder_temperature, spk_id=si if vocoder_multispk else None,
+            device=device) for si, spk in enumerate(spks) if vocoder_n_eval > 0}
+        summary = {"epochs": vocoder_epochs, "final_nll": res["history"][-1]["nll"]}
+        if vocoder_multispk:
+            summary = {"speakers": spks, **summary, "copy_synthesis": aggs}
+        else:
+            summary = {"speaker": spk_trg, **summary, "copy_synthesis": aggs.get(spk_trg, {})}
+        with open(os.path.join(vexpdir, "vocoder_eval.json"), "w") as f:
+            json.dump(summary, f, indent=2)
+        logging.info("stage v done: %s", {s: {k: round(v, 3) for k, v in a.items()}
+                                          for s, a in aggs.items()})
+
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="cyclevae_tpu_torch",
@@ -373,7 +415,7 @@ def main(argv=None):
     p.add_argument("--vocoder-lr-decay", action="store_true",
                    help="cosine lr decay to lr/10 over the run")
     p.add_argument("--device", default=None,
-                   help="torch device of stages 4-6 (default: the current CUDA "
+                   help="torch device of stages 4, 5, 6, i and v (default: the current CUDA "
                         "device; 'cpu' runs the kernels' plain versions)")
     args = p.parse_args(argv)
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 import functools
 import os
 import pickle
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -96,23 +96,26 @@ def _to_numpy(tree):
     return tree
 
 
-def _to_torch(tree):
+def to_torch(tree):
     """numpy leaves -> CPU tensors (copies), structure kept."""
     if isinstance(tree, dict):
-        return {k: _to_torch(v) for k, v in tree.items()}
+        return {k: to_torch(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_torch(v) for v in tree)
+        return type(tree)(to_torch(v) for v in tree)
     if isinstance(tree, np.ndarray):
         return torch.from_numpy(tree.copy())
     return tree
 
 
-def save_checkpoint(checkpoint_dir: str, params: CycleVAEParams,
+def save_checkpoint(checkpoint_dir: str, params: Union[CycleVAEParams, Dict],
                     opt_state: torch.optim.Optimizer, generator: torch.Generator,
                     np_rng: np.random.Generator, epoch: int,
                     name: Optional[str] = None) -> str:
     """Pickle a training state with numpy leaves to
-    ``checkpoint_dir/checkpoint-<epoch>.pkl`` (or ``name``), atomically: a
+    ``checkpoint_dir/checkpoint-<epoch>.pkl`` (or ``name``), atomically.
+    ``params`` is a CycleVAE's ``CycleVAEParams`` or a WaveRNN's nested dict
+    (``pipeline.vocoder_stage.run_train_vocoder``); either comes back with
+    its structure and numpy leaves.  A
     rolling ``checkpoint-latest.pkl`` is overwritten in place every epoch,
     and a crash mid-write must not corrupt the resume point."""
     os.makedirs(checkpoint_dir, exist_ok=True)
@@ -137,9 +140,9 @@ def restore_train_state(ckpt: Dict[str, Any], optimizer: Optimizer,
     ``device`` (CUDA unless ``device="cpu"``), a fresh optimizer of ``optimizer`` loaded with the saved
     state, and a generator on ``device`` with the saved state."""
     device = resolve_device(device)
-    params = params_to(CycleVAEParams(*(_to_torch(net) for net in ckpt["params"])), device)
+    params = params_to(CycleVAEParams(*(to_torch(net) for net in ckpt["params"])), device)
     opt = optimizer.init(params)
-    opt.load_state_dict(_to_torch(ckpt["opt_state"]))
+    opt.load_state_dict(to_torch(ckpt["opt_state"]))
     generator = torch.Generator(device=device)
     generator.set_state(torch.from_numpy(np.asarray(ckpt["rng_state"], dtype=np.uint8)))
     return TrainState(params, opt, generator, 0)

@@ -152,9 +152,11 @@ def test_entry_points_need_cuda_unless_told(monkeypatch):
 
 def test_package_imports_without_jax():
     """Every module of the port imports with jax, optax, cyclevae_tpu and
-    h5py blocked, the vocoder slice's, the host DSP's, and the recipe's
-    (the feature store, stats, train stage, recipe and the CLI module, which
-    runs nothing on import) among them."""
+    h5py blocked, the vocoder slice's, the host DSP's, the recipe's (the
+    feature store, stats, train stage, recipe and the CLI module, which runs
+    nothing on import), and stages i and v's (the samplers, the inference
+    stage, the vocoder's dataset and trainer) among them; one HMC step and
+    one vocoder train step run there."""
     code = (
         "import sys, importlib, pkgutil\n"
         "for m in ('jax', 'jaxlib', 'optax', 'cyclevae_tpu', 'h5py'):\n"
@@ -169,7 +171,10 @@ def test_package_imports_without_jax():
         "          'pipeline.features', 'pipeline.decode', 'utils.wavio', 'interop',\n"
         "          'dsp', 'dsp._lib', 'dsp.sptk', 'dsp.world', 'dsp.dtw', 'dsp.mlpg',\n"
         "          'dsp.torch_ops', 'utils.store', 'utils.prefetch', 'pipeline.stats',\n"
-        "          'pipeline.summary', 'pipeline.train_stage', 'pipeline.recipe', '__main__'):\n"
+        "          'pipeline.summary', 'pipeline.train_stage', 'pipeline.recipe', '__main__',\n"
+        "          'infer', 'infer.draws', 'infer.dual_averaging', 'infer.logjoint', 'infer.hmc',\n"
+        "          'infer.nuts', 'infer.nuts_batch', 'infer.smc', 'pipeline.infer_stage',\n"
+        "          'pipeline.dataset_mult'):\n"
         "    assert 'cyclevae_tpu_torch.' + m in sys.modules, m\n"
         "import numpy as np\n"
         "from cyclevae_tpu_torch.dsp import sptk\n"
@@ -179,6 +184,28 @@ def test_package_imports_without_jax():
         "path = os.path.join(tempfile.mkdtemp(), 's.npz')\n"
         "write_store(path, '/lf0_range_mean', np.float64(4.5))\n"
         "assert float(read_store(path, '/lf0_range_mean')) == 4.5\n"
+        "import torch\n"
+        "from cyclevae_tpu_torch.infer import Draws, HMCConfig, hmc_sample_batch\n"
+        "from cyclevae_tpu_torch.infer.logjoint import make_utterance_logjoint_batched\n"
+        "from cyclevae_tpu_torch.vi.train import CycleVAEConfig, init_cyclevae\n"
+        "cfg = CycleVAEConfig(hidden_units=8, lat_dim=4)\n"
+        "params = init_cyclevae(torch.Generator().manual_seed(0), cfg, device='cpu')\n"
+        "lj = make_utterance_logjoint_batched(params, cfg, torch.randn(6, 54),\n"
+        "                                     torch.eye(2)[[0] * 6], obs_scale=50.0)\n"
+        "s, info = hmc_sample_batch(Draws(torch.Generator().manual_seed(1)), lj,\n"
+        "                           torch.zeros(2, 6, 4), HMCConfig(0.05, 2, 0, 1))\n"
+        "assert s.shape == (1, 2, 6, 4) and torch.isfinite(s).all()\n"
+        "from cyclevae_tpu_torch.models.wavernn import WaveRNNConfig\n"
+        "from cyclevae_tpu_torch.pipeline.vocoder_stage import run_train_vocoder\n"
+        "from cyclevae_tpu_torch.utils.wavio import write_wav\n"
+        "d = tempfile.mkdtemp()\n"
+        "write_wav(os.path.join(d, 'u.wav'), 22050, 3000 * np.sin(np.arange(1200) * 0.1))\n"
+        "write_store(os.path.join(d, 'u.npz'), '/feat_org_lf0', np.ones((12, 54), np.float32))\n"
+        "vcfg = WaveRNNConfig(n_classes=16, embed_dim=4, cond_dim=4, hidden_units=8, fc_dim=4)\n"
+        "res = run_train_vocoder(vcfg, [os.path.join(d, 'u.wav')], [os.path.join(d, 'u.npz')],\n"
+        "                        os.path.join(d, 'voc'), epochs=1, batch_size=1, clip_frames=4,\n"
+        "                        device='cpu')\n"
+        "assert np.isfinite(res['history'][0]['nll'])\n"
         "print('imported', len([m for m in sys.modules if m.startswith('cyclevae_tpu_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

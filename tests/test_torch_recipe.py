@@ -1,8 +1,8 @@
 """The port's one-to-one recipe (``pipeline/recipe.py``, ``python -m
 cyclevae_tpu_torch``) end to end on the CPU at a tiny size (hu16, n_cyc 1,
 1.0 s synthetic wavs), against the JAX recipe on the same corpus: stages 1-3
-bitwise equal, stages 4-6 complete, resume reproducing epoch 2, the stages
-not ported refused, the JAX recipe's flags."""
+bitwise equal, stages 4-6 complete, resume reproducing epoch 2, stages i
+and v (both vocoder branches) and their artifacts, the JAX recipe's flags."""
 
 import json
 import os
@@ -156,12 +156,88 @@ def test_resume_reproduces_trajectory(runs, tmp_path):
     assert abs(a["eval"]["criterion"] - b["eval"]["criterion"]) < 1e-4
 
 
-@pytest.mark.parametrize("stage,item", [("i", "item 6"), ("v", "item 5"), ("1v", "item 5")])
-def test_stages_not_ported_raise(tmp_path, stage, item):
-    paths = trecipe.RecipePaths(wav_root=str(tmp_path / "none"), work=str(tmp_path / "w"))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue A {item}"):
-        trecipe.run_stages(stage, _port_exp(), paths, device="cpu", vocoder_epochs=3)
-    assert not os.path.exists(tmp_path / "w")          # refused before any stage ran
+@pytest.fixture
+def small_hmc(monkeypatch):
+    """Stage i's HMC cut to 2 chains of 2 + 2 steps (the recipe passes the
+    stage's defaults: 8 chains, 100 + 100 steps of 8 leapfrogs)."""
+    from cyclevae_tpu_torch.infer import HMCConfig
+    from cyclevae_tpu_torch.pipeline import infer_stage
+
+    run = infer_stage.run_infer_stage
+    monkeypatch.setattr(infer_stage, "run_infer_stage", lambda *a, **k: run(
+        *a, n_chains=2, n_predictive=3, hmc=HMCConfig(0.05, 2, 2, 2), **k))
+
+
+def test_stage_i_writes_the_posterior(runs, small_hmc):
+    """Stage i on the trained model: per eval utterance of the source
+    speaker the posterior and predictive statistics, in the store."""
+    _, paths, exp = runs
+    trecipe.run_stages("i", exp, paths, conf_dir=None, device="cpu")
+    out = os.path.join(paths.work, "exp", exp.name(), "posterior_ep1.npz")
+    T = len(read_store(paths.h5s("SPKA", True)[0], "/feat_org_lf0"))
+    for k, dim in (("z_mean", 32), ("z_std", 32), ("cv_mcep_mean", 50), ("cv_mcep_std", 50)):
+        v = read_store(out, f"/e0/{k}")
+        assert v.shape == (T, dim) and np.isfinite(v).all(), k
+    assert np.all(read_store(out, "/e0/z_std") >= 0)
+
+
+def _vocoder_checks(vexpdir, epochs, eval_dirs):
+    hist = json.load(open(os.path.join(vexpdir, "history.json")))["history"]
+    assert [h["epoch"] for h in hist] == list(range(1, epochs + 1))
+    assert all(np.isfinite(h["nll"]) and h["nll"] > 0 for h in hist)
+    assert sorted(f for f in os.listdir(vexpdir) if f.endswith(".pkl")) == \
+        [f"checkpoint-{epochs}.pkl", "checkpoint-latest.pkl"]
+    ev = json.load(open(os.path.join(vexpdir, "vocoder_eval.json")))
+    assert ev["epochs"] == epochs and ev["final_nll"] == hist[-1]["nll"]
+    for d in eval_dirs:
+        rate, y = wavfile.read(os.path.join(vexpdir, d, "e0.wav"))
+        assert rate == FS and len(y) > FS // 2
+    return ev
+
+
+@pytest.mark.parametrize("multispk", [False, True])
+def test_stage_v_trains_and_scores(runs, multispk):
+    """Stage v: the target speaker's WaveRNN (or, ``vocoder_multispk``, one
+    model of both speakers under a speaker code) trained for 2 epochs on its
+    train wavs and features, then copy synthesis of its eval utterance(s)."""
+    _, paths, exp = runs
+    trecipe.run_stages("v", exp, paths, conf_dir=None, device="cpu", vocoder_epochs=2,
+                       vocoder_clip_frames=8, vocoder_n_eval=1, vocoder_hidden_units=16,
+                       vocoder_multispk=multispk, vocoder_lr_decay=multispk)
+    if multispk:
+        ev = _vocoder_checks(os.path.join(paths.work, "exp", "vocoder_multispk_hu16"), 2,
+                             ["wav_vocoded_SPKA", "wav_vocoded_SPKB"])
+        assert ev["speakers"] == ["SPKA", "SPKB"] and sorted(ev["copy_synthesis"]) == \
+            ["SPKA", "SPKB"]
+        aggs = list(ev["copy_synthesis"].values())
+    else:
+        ev = _vocoder_checks(os.path.join(paths.work, "exp", "vocoder_SPKB_hu16"), 2,
+                             ["wav_vocoded"])
+        assert ev["speaker"] == "SPKB"
+        aggs = [ev["copy_synthesis"]]
+    for agg in aggs:
+        assert sorted(agg) == sorted(k + s for k in ("mcdpow", "mcd", "f0_rel_err_median",
+                                                     "uv_agree") for s in ("", "_std"))
+        assert np.isfinite(agg["mcd"]) and 0.0 <= agg["uv_agree"] <= 1.0
+
+
+def test_cli_runs_stages_i_and_v(runs, small_hmc, tmp_path):
+    """``--stage iv`` through the CLI's ``main`` on a copy of the trained
+    run: the posterior file and a vocoder of 1 epoch without copy synthesis."""
+    import shutil
+    _, paths, exp = runs
+    work = tmp_path / "work"
+    os.makedirs(work / "exp")
+    os.symlink(os.path.join(paths.work, "hdf5"), work / "hdf5")
+    shutil.copytree(os.path.join(paths.work, "exp", exp.name()), work / "exp" / exp.name())
+    save_config(exp, str(tmp_path / "exp.json"))
+    trecipe.main(["--stage", "iv", "--work", str(work), "--wav-root", paths.wav_root,
+                  "--config", str(tmp_path / "exp.json"), "--n-train", "2",
+                  "--vocoder-epochs", "1", "--vocoder-clip-frames", "8", "--vocoder-n-eval",
+                  "0", "--vocoder-hidden-units", "16", "--device", "cpu"])
+    assert os.path.exists(work / "exp" / exp.name() / "posterior_ep1.npz")
+    ev = json.load(open(work / "exp" / "vocoder_SPKB_hu16" / "vocoder_eval.json"))
+    assert ev["epochs"] == 1 and ev["copy_synthesis"] == {}
 
 
 ARGV = ["--stage", "1a23456", "--work", "W", "--wav-root", "R", "--conf-dir", "C",
