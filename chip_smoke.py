@@ -75,6 +75,26 @@ Phases, one line or more each; any failure exits non-zero:
               SMC over 256 particles; K2 and K3 at B=8 and B=1 and K1 at
               B=16 timed beside their bounds; the largest batch K1, K2 and K3
               plan;
+  9. variants the model variants on phase 7's corpus and work directory
+              plus a third speech-like speaker (~170 Hz, made from the seed,
+              the same counts; stage 1's analysis and its statistics): the
+              many-to-many recipe, ``run_mult_stages`` 3, 4, 5, 6 in turn
+              over src [SPKA], trg [SPKB, SPKC] at the ``ModelConfig``
+              defaults (n_spk 3), 2 epochs, per stage the host seconds and
+              the K1, K2 and K3 launches (4m: 8 K2 + 8 K3 per valid segment,
+              8 K1 per eval batch; 5m: 2 K1 per training utterance; 6m: 2
+              K1 per eval pair over the 6 ordered directions and per
+              interpolation), its artifacts, then epoch 1 of 4m and stage 5m
+              on the plain path within phase 7's bounds; the speaker
+              classifier (``run_train_cls``: 1 K2 + 1 K3 a step, 2 K1 per
+              eval pair) and the VQ-CycleVAE (``run_train_vq``: 5 K2 + 5 K3
+              a step) for 2 epochs each with their launches; one step of
+              each, kernel route against the plain path on the same
+              weights, batch and draws (f32 loss within 1e-5 relative,
+              gradients within 2e-4 of scale); K2 and K3 at the
+              classifier's out = 3 and the VQ encoder's out = 32 (B = bsu,
+              T = 560) and K1 at stage 5m's B = 3 and the classifier's
+              eval B = 1, timed beside their bounds;
 then the card's name and power limit, one JSON line of the kernels, and as
 the last line ``{"ok": true, "device": {...}}``.
 
@@ -90,6 +110,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -198,6 +219,21 @@ INFER_OBS_SCALE = 50.0              # the stage's obs_scale
 LOGJOINT_F32_REL = 1e-5
 HMC_Z_REL = 1e-3
 SMC_PARTICLES = 256
+# phase 9, the model variants, on phase 7's corpus and work directory with a
+# third speech-like speaker (~170 Hz, made from the seed like the other two,
+# the same counts: RECIPE_UTTS train-directory utterances of 1.5-2.5 s and
+# one eval utterance; its min F0, max F0, power threshold); the many-to-many
+# recipe over src [SPKA], trg [SPKB, SPKC] at the ModelConfig defaults (n_spk
+# 3) for 2 epochs (VCC2018: 4 + 4 speakers, 500 epochs; cut to fit a smoke
+# run, widths unchanged); its epoch 1 and stage 5m on the plain path within
+# the recipe's bounds; the classifier and the VQ-CycleVAE trainers for 2
+# epochs each; one step of each, kernel route against the plain path on the
+# same weights, batch and draws: the f32 loss within 1e-5 relative, every
+# gradient within GRAD_SCALE_TOL of its largest value
+VARIANT_SPEAKER, VARIANT_F0, VARIANT_RANGE = "SPKC", 170.0, (90.0, 450.0, -25.0)
+VARIANT_EPOCHS = 2
+VARIANT_LOSS_REL = 1e-5
+VARIANT_T = 560                     # the longest whole-utterance bucket (2.5 s at 5 ms)
 
 
 def log(msg: str) -> None:
@@ -304,25 +340,26 @@ def phase_build():
                 log(f"[build] {name}: {line.strip()}")
 
 
-def phase_kernels(dev):
-    """K1 against its plain version at the conversion path's shapes."""
+def _k1_rows(dev, gen, calls, T, dtypes, tag="kernels"):
+    """K1 against its plain version on random weights, gates and feedback:
+    per (call, B, out, conv_dim) of ``calls`` and dtype, the max abs
+    difference, kernel and plain times (CUDA events), the bound and the plan."""
     from cyclevae_tpu_torch.models.layers import init_dense, init_gru_stack
     from cyclevae_tpu_torch.ops import _build
     from cyclevae_tpu_torch.ops.cuda_gru import PLAN_KEYS, cuda_gru_ar, gru_ar_reference, plan
     from cyclevae_tpu_torch.ops.gru_scan import precompute_input_gates
 
     results = {}
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    for call, B, out, conv_dim in (("encoder", 2, 64, 486), ("decoder", 3, 50, 306)):
+    for call, B, out, conv_dim in calls:
         layer = init_gru_stack(gen, conv_dim + out, H, 1)[0]
         layer["b_ih"].uniform_(-0.1, 0.1, generator=gen)
         layer["b_hh"].uniform_(-0.1, 0.1, generator=gen)
         proj = init_dense(gen, H, out)
-        conv = torch.randn((B, T_KERNEL, conv_dim), generator=gen, device=dev)
+        conv = torch.randn((B, T, conv_dim), generator=gen, device=dev)
         gx = precompute_input_gates(layer, conv)
         y0 = 0.5 * torch.randn((B, out), generator=gen, device=dev)
         h0 = torch.zeros((B, H), device=dev)
-        for wdt in (torch.float32, torch.bfloat16):
+        for wdt in dtypes:
             args = (layer, proj, gx, y0, h0, wdt)
             got = cuda_gru_ar(*args)
             want = gru_ar_reference(*args)
@@ -334,20 +371,27 @@ def phase_kernels(dev):
                              else rl2 < BF16_REL_L2 and cos > BF16_COS)
             ms = cuda_ms(lambda: cuda_gru_ar(*args), iters=10, warmup=2)
             plain_ms = cuda_ms(lambda: gru_ar_reference(*args), iters=2)
-            bound_ms, bound_by = gru_ar_bound_ms(B, T_KERNEL, out, wdt)
+            bound_ms, bound_by = gru_ar_bound_ms(B, T, out, wdt)
             pl = dict(zip(PLAN_KEYS, plan(_build.load("gru_ar"), B, H, out, wdt)))
             key = f"{call}/{str(wdt).split('.')[-1]}"
-            results[key] = dict(B=B, T=T_KERNEL, out=out, max_abs_err=err,
+            results[key] = dict(B=B, T=T, out=out, max_abs_err=err,
                                 rel_l2=rl2, cosine=cos, ms=ms,
-                                us_per_frame=ms * 1e3 / T_KERNEL, plain_ms=plain_ms,
+                                us_per_frame=ms * 1e3 / T, plain_ms=plain_ms,
                                 bound_ms=bound_ms, bound_by=bound_by, plan=pl, ok=ok)
             plan_txt = " ".join(f"{k}={v}" for k, v in pl.items())
-            log(f"[kernels] gru_ar {key} B={B} T={T_KERNEL} H={H} out={out} "
+            log(f"[{tag}] gru_ar {key} B={B} T={T} H={H} out={out} "
                 f"plan: {plan_txt}; max_abs={err:.3e} "
                 f"rel_l2={rl2:.3e} cos={cos:.6f} kernel={ms:.3f} ms "
-                f"({ms * 1e3 / T_KERNEL:.2f} us/frame) plain={plain_ms:.1f} ms "
+                f"({ms * 1e3 / T:.2f} us/frame) plain={plain_ms:.1f} ms "
                 f"bound={bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}")
     return results
+
+
+def phase_kernels(dev):
+    """K1 against its plain version at the conversion path's shapes."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return _k1_rows(dev, gen, (("encoder", 2, 64, 486), ("decoder", 3, 50, 306)), T_KERNEL,
+                    (torch.float32, torch.bfloat16))
 
 
 def _match(got, want, wdt, scale_tol):
@@ -368,8 +412,10 @@ def _match(got, want, wdt, scale_tol):
     return err, worst_rl2, worst_cos, ok
 
 
-def phase_train_kernels(dev):
-    """K2 and K3 against their plain versions at the train step's shapes."""
+def _train_rows(dev, gen, runs, dtypes, tag="kernels"):
+    """K2 and K3 against their plain versions on random weights, gates,
+    feedback and dropout masks: per (call, B, out, conv_dim, T, kernels) of
+    ``runs`` and dtype, as ``_k1_rows``."""
     from cyclevae_tpu_torch.models.layers import init_dense, init_gru_stack
     from cyclevae_tpu_torch.ops import _build
     from cyclevae_tpu_torch.ops.cuda_gru import (BWD_PLAN_KEYS, PLAN_KEYS, cuda_gru_ar_bwd,
@@ -378,10 +424,7 @@ def phase_train_kernels(dev):
     from cyclevae_tpu_torch.ops.gru_scan import precompute_input_gates
 
     results = {}
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    runs = [(name, B, out, conv, SEG_LEN) for name, B, out, conv in TRAIN_CALLS]
-    runs.append(("decoder2B", 10, 50, 306, T_BWD_LONG))   # K3 only: past launch cost
-    for call, B, out, conv_dim, T in runs:
+    for call, B, out, conv_dim, T, kernels in runs:
         layer = init_gru_stack(gen, conv_dim + out, H, 1)[0]
         layer["b_ih"].uniform_(-0.1, 0.1, generator=gen)
         layer["b_hh"].uniform_(-0.1, 0.1, generator=gen)
@@ -390,12 +433,8 @@ def phase_train_kernels(dev):
         y0 = 0.5 * torch.randn((B, out), generator=gen, device=dev)
         h0 = 0.1 * torch.randn((B, H), generator=gen, device=dev)
         mask = (torch.rand((B, T, H), generator=gen, device=dev) < 0.5).float() * 2.0
-        for wdt in (torch.float32, torch.bfloat16):
+        for wdt in dtypes:
             dname = str(wdt).split('.')[-1]
-            kernels = []
-            if T == SEG_LEN:
-                kernels.append("gru_ar_train")
-            kernels.append("gru_ar_bwd")
             # K3's inputs from the plain forward: its residuals as the
             # backward sees them, and random output cotangents
             trj, _, _, h_seq = gru_ar_train_reference(layer, proj, gx, y0, h0, mask, wdt)
@@ -431,11 +470,21 @@ def phase_train_kernels(dev):
                                     us_per_step=ms * 1e3 / T, plain_ms=plain_ms,
                                     bound_ms=bound_ms, bound_by=bound_by, plan=pl, ok=ok)
                 plan_txt = " ".join(f"{k}={v}" for k, v in pl.items())
-                log(f"[kernels] {key} B={B} H={H} out={out} plan: {plan_txt}; max_abs={err:.3e} "
+                log(f"[{tag}] {key} B={B} H={H} out={out} plan: {plan_txt}; max_abs={err:.3e} "
                     f"rel_l2={rl2:.3e} cos={cos:.6f} kernel={ms:.3f} ms "
                     f"({ms * 1e3 / T:.2f} us/step) plain={plain_ms:.1f} ms "
                     f"bound={bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}")
     return results
+
+
+def phase_train_kernels(dev):
+    """K2 and K3 against their plain versions at the train step's shapes."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    runs = [(name, B, out, conv, SEG_LEN, ("gru_ar_train", "gru_ar_bwd"))
+            for name, B, out, conv in TRAIN_CALLS]
+    # K3 only: past launch cost
+    runs.append(("decoder2B", 10, 50, 306, T_BWD_LONG, ("gru_ar_bwd",)))
+    return _train_rows(dev, gen, runs, (torch.float32, torch.bfloat16))
 
 
 def _vocoder(dev, seed: int, n_spk: int = 0):
@@ -856,8 +905,6 @@ def phase_convert_wav(dev):
     (WORLD/SPTK analysis on the host) and ``decode_pair`` (the device call
     through ``Codec``, DTW metrics, ``mod_pow``, the GV postfilter, seven
     WORLD syntheses and an MLSA filtering), as the recipe drives it."""
-    import tempfile
-
     from scipy.io import wavfile
 
     from cyclevae_tpu_torch.dsp import _lib as dsp_lib
@@ -992,14 +1039,43 @@ def _max_rel(got: dict, want: dict) -> float:
                             / np.abs(np.asarray(want[k])))) for k in want)
 
 
-def phase_recipe(dev):
+def timed_steps(make_train_step, into: list):
+    """``make_train_step`` whose steps append (host seconds, real frames,
+    valid segments) to ``into``, each step ended by a synchronize."""
+    def make(cfg_, opt, seg_len, n_segs):
+        step = make_train_step(cfg_, opt, seg_len, n_segs)
+
+        def timed(ts, batch, *a):
+            t0 = time.perf_counter()
+            out = step(ts, batch, *a)
+            torch.cuda.synchronize()
+            flens = np.asarray(batch["flens"])
+            valid = sum(bool(np.any(flens > s * seg_len)) for s in range(n_segs))
+            into.append((time.perf_counter() - t0, int(flens.sum()), valid))
+            return out
+        return timed
+    return make
+
+
+def _plain_work(paths, work: str, expname: str):
+    """A second work directory for a rerun on the plain path: the features
+    of ``paths`` linked, its statistics copied (a rerun rewrites them), an
+    empty ``exp/<expname>``."""
+    import shutil
+
+    from cyclevae_tpu_torch.pipeline.recipe import RecipePaths
+    os.makedirs(os.path.join(work, "exp", expname))
+    os.symlink(os.path.join(paths.work, "hdf5"), os.path.join(work, "hdf5"))
+    shutil.copytree(os.path.join(paths.work, "stats"), os.path.join(work, "stats"))
+    return RecipePaths(wav_root=paths.wav_root, work=work, n_train=paths.n_train)
+
+
+def phase_recipe(dev, tmp: str):
     """The one-to-one recipe, wav corpus to trained model to converted wavs,
     through ``run_stages`` as ``python -m cyclevae_tpu_torch --stage
     1a23456`` drives it, one stage at a time so that each stage's launches
-    are read around it."""
-    import shutil
-    import tempfile
-
+    are read around it.  The corpus and the work directory are made in
+    ``tmp``; phase 9 goes on from them."""
     from cyclevae_tpu_torch.dsp import _lib as dsp_lib
     from cyclevae_tpu_torch.models import gru_vae, wavernn
     from cyclevae_tpu_torch.ops.cuda_gru import cuda_gru_ar, cuda_gru_ar_bwd, cuda_gru_ar_train
@@ -1043,19 +1119,6 @@ def phase_recipe(dev):
             return fn(*a, **k)
         return call
 
-    def timed_make_step(cfg_, opt, seg_len, n_segs):
-        step = orig["step"](cfg_, opt, seg_len, n_segs)
-
-        def timed(ts, batch, *a):
-            t0 = time.perf_counter()
-            out = step(ts, batch, *a)
-            torch.cuda.synchronize()
-            flens = np.asarray(batch["flens"])
-            valid = sum(bool(np.any(flens > s * seg_len)) for s in range(n_segs))
-            steps.append((time.perf_counter() - t0, int(flens.sum()), valid))
-            return out
-        return timed
-
     def timed_call(fn, into):
         def timed(*a, **k):
             t0 = time.perf_counter()
@@ -1066,240 +1129,235 @@ def phase_recipe(dev):
 
     ok = True
     totals = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_recipe") as tmp:
-        # ---- the corpus, made from the seed ----
-        wav_root, conf = os.path.join(tmp, "wav"), os.path.join(tmp, "conf")
-        for k, (spk, f0) in enumerate(RECIPE_SPEAKERS.items()):
-            side = ("src", "trg")[k]
-            for d in (os.path.join(wav_root, spk), os.path.join(wav_root, "eval", spk), conf):
-                os.makedirs(d, exist_ok=True)
-            for i, sec in enumerate(RECIPE_SECONDS):
-                write_wav(os.path.join(wav_root, spk, f"utt{i}.wav"), fs,
-                          speechlike_wav(f0 * (1 + 0.03 * i), int(sec * fs), seed=SEED + 40 + i))
-            write_wav(os.path.join(wav_root, "eval", spk, "e0.wav"), fs,
-                      speechlike_wav(f0 * 1.02, int(RECIPE_EVAL_SECONDS * fs), seed=SEED + 60))
-            minf0, maxf0, pw = WAV_RANGE[side]
-            with open(os.path.join(conf, f"{spk}.f0"), "w") as f:
-                f.write(f"{minf0} {maxf0}")
-            with open(os.path.join(conf, f"{spk}.pow"), "w") as f:
-                f.write(f"{pw}")
-        paths = recipe.RecipePaths(wav_root=wav_root, work=os.path.join(tmp, "work"),
-                                   n_train=RECIPE_N_TRAIN)
-        expdir = os.path.join(paths.work, "exp", exp.name())
+    # ---- the corpus, made from the seed ----
+    wav_root, conf = os.path.join(tmp, "wav"), os.path.join(tmp, "conf")
+    for k, (spk, f0) in enumerate(RECIPE_SPEAKERS.items()):
+        side = ("src", "trg")[k]
+        for d in (os.path.join(wav_root, spk), os.path.join(wav_root, "eval", spk), conf):
+            os.makedirs(d, exist_ok=True)
+        for i, sec in enumerate(RECIPE_SECONDS):
+            write_wav(os.path.join(wav_root, spk, f"utt{i}.wav"), fs,
+                      speechlike_wav(f0 * (1 + 0.03 * i), int(sec * fs), seed=SEED + 40 + i))
+        write_wav(os.path.join(wav_root, "eval", spk, "e0.wav"), fs,
+                  speechlike_wav(f0 * 1.02, int(RECIPE_EVAL_SECONDS * fs), seed=SEED + 60))
+        minf0, maxf0, pw = WAV_RANGE[side]
+        with open(os.path.join(conf, f"{spk}.f0"), "w") as f:
+            f.write(f"{minf0} {maxf0}")
+        with open(os.path.join(conf, f"{spk}.pow"), "w") as f:
+            f.write(f"{pw}")
+    paths = recipe.RecipePaths(wav_root=wav_root, work=os.path.join(tmp, "work"),
+                               n_train=RECIPE_N_TRAIN)
+    expdir = os.path.join(paths.work, "exp", exp.name())
 
-        # ---- the main path: counts set to 0 just before each stage, read just after ----
-        gru_vae.gru_ar_scan = counted_scan
-        train_stage.make_train_step = timed_make_step
-        decode.analyze_pair = timed_call(orig["analyze"], analyses)
-        decode.decode_pair = timed_call(orig["decode"], requests)
-        wavernn.plain_recurrence = counted("plain", orig["plain_tf"])
-        wavernn.cudnn_recurrence = counted("cudnn", orig["cudnn_tf"])
-        infer_stage.posterior_convert_hmc = timed_call(orig["posterior"], posteriors)
-        vocoder_stage.synthesize_vocoder = timed_call(orig["synth"], syntheses)
-        stage_runs = {}
-        try:
-            for stage in RECIPE_STAGES:
-                cuda_gru_ar.launches = cuda_gru_ar_train.launches = cuda_gru_ar_bwd.launches = 0
-                cuda_wavernn_generate.launches = 0
-                scans[0] = tf_calls["plain"] = tf_calls["cudnn"] = 0
-                t0 = time.perf_counter()
-                recipe.run_stages(stage, exp, paths, conf_dir=conf, n_jobs=8, device=dev,
-                                  vocoder_epochs=RECIPE_VOC_EPOCHS,
-                                  vocoder_hidden_units=RECIPE_VOC_HU,
-                                  vocoder_clip_frames=RECIPE_VOC_CLIP)
-                torch.cuda.synchronize()
-                sec = time.perf_counter() - t0
-                stage_runs[stage] = dict(sec=sec, K1=cuda_gru_ar.launches,
-                                         K2=cuda_gru_ar_train.launches,
-                                         K3=cuda_gru_ar_bwd.launches,
-                                         K4=cuda_wavernn_generate.launches, scan=scans[0],
-                                         tf_plain=tf_calls["plain"], tf_cudnn=tf_calls["cudnn"])
-                for k in totals:
-                    totals[k] += stage_runs[stage][k]
-                log(f"[recipe] stage {stage}: {sec:.2f} s host; launches K1 "
-                    f"{cuda_gru_ar.launches}, K2 {cuda_gru_ar_train.launches}, K3 "
-                    f"{cuda_gru_ar_bwd.launches}, K4 {cuda_wavernn_generate.launches}; plain "
-                    f"scan calls {scans[0]}; teacher-forced WaveRNN calls: cuDNN "
-                    f"{tf_calls['cudnn']}, plain loop {tf_calls['plain']}")
-        finally:
-            gru_vae.gru_ar_scan = orig["scan"]
-            train_stage.make_train_step = orig["step"]
-            decode.analyze_pair = orig["analyze"]
-            decode.decode_pair = orig["decode"]
-            wavernn.plain_recurrence = orig["plain_tf"]
-            wavernn.cudnn_recurrence = orig["cudnn_tf"]
-            infer_stage.posterior_convert_hmc = orig["posterior"]
-            vocoder_stage.synthesize_vocoder = orig["synth"]
+    # ---- the main path: counts set to 0 just before each stage, read just after ----
+    gru_vae.gru_ar_scan = counted_scan
+    train_stage.make_train_step = timed_steps(orig["step"], steps)
+    decode.analyze_pair = timed_call(orig["analyze"], analyses)
+    decode.decode_pair = timed_call(orig["decode"], requests)
+    wavernn.plain_recurrence = counted("plain", orig["plain_tf"])
+    wavernn.cudnn_recurrence = counted("cudnn", orig["cudnn_tf"])
+    infer_stage.posterior_convert_hmc = timed_call(orig["posterior"], posteriors)
+    vocoder_stage.synthesize_vocoder = timed_call(orig["synth"], syntheses)
+    stage_runs = {}
+    try:
+        for stage in RECIPE_STAGES:
+            cuda_gru_ar.launches = cuda_gru_ar_train.launches = cuda_gru_ar_bwd.launches = 0
+            cuda_wavernn_generate.launches = 0
+            scans[0] = tf_calls["plain"] = tf_calls["cudnn"] = 0
+            t0 = time.perf_counter()
+            recipe.run_stages(stage, exp, paths, conf_dir=conf, n_jobs=8, device=dev,
+                              vocoder_epochs=RECIPE_VOC_EPOCHS,
+                              vocoder_hidden_units=RECIPE_VOC_HU,
+                              vocoder_clip_frames=RECIPE_VOC_CLIP)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            stage_runs[stage] = dict(sec=sec, K1=cuda_gru_ar.launches,
+                                     K2=cuda_gru_ar_train.launches,
+                                     K3=cuda_gru_ar_bwd.launches,
+                                     K4=cuda_wavernn_generate.launches, scan=scans[0],
+                                     tf_plain=tf_calls["plain"], tf_cudnn=tf_calls["cudnn"])
+            for k in totals:
+                totals[k] += stage_runs[stage][k]
+            log(f"[recipe] stage {stage}: {sec:.2f} s host; launches K1 "
+                f"{cuda_gru_ar.launches}, K2 {cuda_gru_ar_train.launches}, K3 "
+                f"{cuda_gru_ar_bwd.launches}, K4 {cuda_wavernn_generate.launches}; plain "
+                f"scan calls {scans[0]}; teacher-forced WaveRNN calls: cuDNN "
+                f"{tf_calls['cudnn']}, plain loop {tf_calls['plain']}")
+    finally:
+        gru_vae.gru_ar_scan = orig["scan"]
+        train_stage.make_train_step = orig["step"]
+        decode.analyze_pair = orig["analyze"]
+        decode.decode_pair = orig["decode"]
+        wavernn.plain_recurrence = orig["plain_tf"]
+        wavernn.cudnn_recurrence = orig["cudnn_tf"]
+        infer_stage.posterior_convert_hmc = orig["posterior"]
+        vocoder_stage.synthesize_vocoder = orig["synth"]
 
-        # ---- stage 4's steps and stage 6's request ----
-        secs = [t for t, _, _ in steps]
-        log(f"[recipe] stage 4: {len(steps)} train steps, s/step "
-            + ", ".join(f"{t:.4f}" for t in secs) + "; real frames/s "
-            + ", ".join(f"{n / t:.0f}" for t, n, _ in steps)
-            + f" (median {np.median(secs):.4f} s/step); valid segments per step "
-            + ", ".join(str(v) for _, _, v in steps))
-        eval_wavs = {spk: paths.wavs(spk, eval_set=True) for spk in RECIPE_SPEAKERS}
-        speech_s = sum(len(_read_wav_samples(w)) for w in eval_wavs[src]) / fs
-        request_s = sum(analyses) + sum(requests)
-        log(f"[recipe] stage 6: {len(requests)} request(s), analysis "
-            + ", ".join(f"{t * 1e3:.1f}" for t in analyses) + " ms, conversion "
-            + ", ".join(f"{t * 1e3:.1f}" for t in requests)
-            + f" ms; {speech_s:.3f} s of source speech, real-time factor "
-            f"{request_s / speech_s:.3f} (stage {stage_runs['6']['sec'] / speech_s:.3f})")
-        hmc_cfg, n_pred = (inspect.signature(orig["posterior"]).parameters[k].default
-                           for k in ("hmc", "n_predictive"))
-        n_post = len(eval_wavs[src][:4])
-        hmc_steps = hmc_cfg.n_warmup + hmc_cfg.n_samples
-        grads = stage_runs["i"]["K3"]
-        log(f"[recipe] stage i: {n_post} utterance(s) of HMC ({hmc_steps} steps of "
-            f"{hmc_cfg.n_leapfrog} leapfrogs, 8 chains), s per utterance "
-            + ", ".join(f"{t:.2f}" for t in posteriors)
-            + f"; {grads} gradient evaluations, {grads / max(sum(posteriors), 1e-9):.1f} per s; "
-            f"{sum(posteriors) / max(n_post * hmc_steps, 1) * 1e3:.1f} ms per HMC step")
-        vexpdir = os.path.join(paths.work, "exp", f"vocoder_{trg}_hu{RECIPE_VOC_HU}")
-        with open(os.path.join(vexpdir, "history.json")) as f:
-            voc_hist = json.load(f)["history"]
-        voc_train = paths.wavs(trg)[:RECIPE_N_TRAIN]
-        voc_steps = -(-len(voc_train) // 8)         # run_train_vocoder's batch of 8
-        voc_samples = 8 * vocoder_stage.n_samples_for(wavernn.WaveRNNConfig(), RECIPE_VOC_CLIP)
-        voc_step_s = [h["sec"] / voc_steps for h in voc_hist]
-        trg_speech_s = sum(len(_read_wav_samples(w)) for w in eval_wavs[trg][:5]) / fs
-        log(f"[recipe] stage v: {len(voc_hist)} epochs of {voc_steps} train step(s) (batch 8 "
-            f"x {RECIPE_VOC_CLIP} frames, {voc_samples} samples), s per step "
-            + ", ".join(f"{t:.3f}" for t in voc_step_s) + ", samples/s "
-            + ", ".join(f"{voc_samples / t:.0f}" for t in voc_step_s)
-            + "; copy synthesis " + ", ".join(f"{t:.3f}" for t in syntheses)
-            + f" s for {trg_speech_s:.3f} s of speech (real-time factor "
-            f"{sum(syntheses) / trg_speech_s:.3f})")
+    # ---- stage 4's steps and stage 6's request ----
+    secs = [t for t, _, _ in steps]
+    log(f"[recipe] stage 4: {len(steps)} train steps, s/step "
+        + ", ".join(f"{t:.4f}" for t in secs) + "; real frames/s "
+        + ", ".join(f"{n / t:.0f}" for t, n, _ in steps)
+        + f" (median {np.median(secs):.4f} s/step); valid segments per step "
+        + ", ".join(str(v) for _, _, v in steps))
+    eval_wavs = {spk: paths.wavs(spk, eval_set=True) for spk in RECIPE_SPEAKERS}
+    speech_s = sum(len(_read_wav_samples(w)) for w in eval_wavs[src]) / fs
+    request_s = sum(analyses) + sum(requests)
+    log(f"[recipe] stage 6: {len(requests)} request(s), analysis "
+        + ", ".join(f"{t * 1e3:.1f}" for t in analyses) + " ms, conversion "
+        + ", ".join(f"{t * 1e3:.1f}" for t in requests)
+        + f" ms; {speech_s:.3f} s of source speech, real-time factor "
+        f"{request_s / speech_s:.3f} (stage {stage_runs['6']['sec'] / speech_s:.3f})")
+    hmc_cfg, n_pred = (inspect.signature(orig["posterior"]).parameters[k].default
+                       for k in ("hmc", "n_predictive"))
+    n_post = len(eval_wavs[src][:4])
+    hmc_steps = hmc_cfg.n_warmup + hmc_cfg.n_samples
+    grads = stage_runs["i"]["K3"]
+    log(f"[recipe] stage i: {n_post} utterance(s) of HMC ({hmc_steps} steps of "
+        f"{hmc_cfg.n_leapfrog} leapfrogs, 8 chains), s per utterance "
+        + ", ".join(f"{t:.2f}" for t in posteriors)
+        + f"; {grads} gradient evaluations, {grads / max(sum(posteriors), 1e-9):.1f} per s; "
+        f"{sum(posteriors) / max(n_post * hmc_steps, 1) * 1e3:.1f} ms per HMC step")
+    vexpdir = os.path.join(paths.work, "exp", f"vocoder_{trg}_hu{RECIPE_VOC_HU}")
+    with open(os.path.join(vexpdir, "history.json")) as f:
+        voc_hist = json.load(f)["history"]
+    voc_train = paths.wavs(trg)[:RECIPE_N_TRAIN]
+    voc_steps = -(-len(voc_train) // 8)         # run_train_vocoder's batch of 8
+    voc_samples = 8 * vocoder_stage.n_samples_for(wavernn.WaveRNNConfig(), RECIPE_VOC_CLIP)
+    voc_step_s = [h["sec"] / voc_steps for h in voc_hist]
+    trg_speech_s = sum(len(_read_wav_samples(w)) for w in eval_wavs[trg][:5]) / fs
+    log(f"[recipe] stage v: {len(voc_hist)} epochs of {voc_steps} train step(s) (batch 8 "
+        f"x {RECIPE_VOC_CLIP} frames, {voc_samples} samples), s per step "
+        + ", ".join(f"{t:.3f}" for t in voc_step_s) + ", samples/s "
+        + ", ".join(f"{voc_samples / t:.0f}" for t in voc_step_s)
+        + "; copy synthesis " + ", ".join(f"{t:.3f}" for t in syntheses)
+        + f" s for {trg_speech_s:.3f} s of speech (real-time factor "
+        f"{sum(syntheses) / trg_speech_s:.3f})")
 
-        # ---- every stage's artifacts ----
-        wavs = [w for spk in RECIPE_SPEAKERS for e in (False, True) for w in paths.wavs(spk, e)]
-        feats = [f for spk in RECIPE_SPEAKERS for e in (False, True) for f in paths.h5s(spk, e)]
-        art = {"features": len(feats) == len(wavs) == 2 * (RECIPE_UTTS + 1)
-               and all(read_store(f, "/cvuvlogf0fil_ap").shape[1] == 4 for f in feats)}
-        art["spk_stat"] = all(os.path.getsize(os.path.join(paths.work, "init_spk_stat",
-                                                           f"{spk}.{x}.txt")) > 0
-                              for spk in RECIPE_SPEAKERS for x in ("f0", "pow"))
-        art["stats"] = all(os.path.exists(p) for p in (paths.stats(src), paths.stats(trg),
-                                                       paths.stats_jnt()))
-        with open(os.path.join(expdir, "history.json")) as f:
-            hist = json.load(f)
-        best = hist["best"]["epoch"]
-        art["history"] = best in (1, 2) and len(hist["history"]) == RECIPE_EPOCHS
-        art["checkpoints"] = all(os.path.exists(os.path.join(expdir, f"checkpoint-{n}.pkl"))
-                                 for n in ("1", "2", "latest", "final"))
-        model_id = f"{exp.name()}_ep{best}"
-        cvgv = {f"{k}_{m}": read_store(paths.stats(src), f"/{k}_{m}_{model_id}")
-                for k in ("cvgv", "cvgvsrc", "cvgvtrg") for m in ("mean", "var")}
-        art["cvgv"] = all(v.shape == (cfg.out_dim - 1,) and np.isfinite(v).all()
-                          for v in cvgv.values())
-        with open(os.path.join(expdir, f"decode_metrics_ep{best}.json")) as f:
-            dm = json.load(f)
-        art["decode_metrics"] = len(dm) == 18 and all(np.isfinite(v) for v in dm.values())
-        lib = dsp_lib.get_lib()
-        T, Tt = (len(read_store(paths.h5s(spk, True)[0], "/feat_org_lf0"))
-                 for spk in (src, trg))
-        out_wavs = {}
-        outdir = os.path.join(expdir, f"wav_cv_ep{best}")
-        for name in sorted(os.listdir(outdir)):
-            out_wavs[name] = _read_wav_samples(os.path.join(outdir, name))
-        want_len = {f"e0{sfx}.wav": lib.cvdsp_synthesis_length(
-            Tt if sfx.endswith("_trg") else T, fs, exp.feature.shiftms)
-            for sfx in ("_noGV", "_noGV_src", "_noGV_trg", "_GV", "_GV_src", "_GV_trg",
-                        "_DiffGVF0")}
-        want_len["e0_DiffGV.wav"] = len(_read_wav_samples(eval_wavs[src][0]))
-        art["wavs"] = sorted(out_wavs) == sorted(want_len) and all(
-            len(y) == want_len[n] and np.abs(y).max() > 0 for n, y in out_wavs.items())
-        post = os.path.join(expdir, f"posterior_ep{best}.npz")
-        post_frames = {os.path.basename(f)[:-4]: len(read_store(f, "/feat_org_lf0"))
-                       for f in paths.h5s(src, True)[:4]}
-        art["posterior"] = all(
-            read_store(post, f"/{b}/{k}").shape == (n, dim)
-            and np.isfinite(read_store(post, f"/{b}/{k}")).all()
-            for b, n in post_frames.items()
-            for k, dim in (("z_mean", cfg.lat_dim), ("z_std", cfg.lat_dim),
-                           ("cv_mcep_mean", cfg.out_dim), ("cv_mcep_std", cfg.out_dim)))
-        with open(os.path.join(vexpdir, "vocoder_eval.json")) as f:
-            voc_eval = json.load(f)
-        cs = voc_eval["copy_synthesis"]
-        art["vocoder"] = (
-            [h["epoch"] for h in voc_hist] == list(range(1, RECIPE_VOC_EPOCHS + 1))
-            and all(np.isfinite(h["nll"]) for h in voc_hist)
-            and voc_eval["final_nll"] == voc_hist[-1]["nll"]
-            and all(os.path.exists(os.path.join(vexpdir, f"checkpoint-{n}.pkl"))
-                    for n in ("latest", str(RECIPE_VOC_EPOCHS)))
-            and len(cs) == 8 and np.isfinite(cs["mcd"]) and 0 <= cs["uv_agree"] <= 1
-            and all(len(_read_wav_samples(os.path.join(vexpdir, "wav_vocoded",
-                                                       os.path.basename(w)))) > 0
-                    for w in eval_wavs[trg][:5]))
-        ok &= all(art.values())
-        log("[recipe] artifacts: " + ", ".join(f"{k} {v}" for k, v in art.items())
-            + f"; best epoch {best} (criterion {hist['best']['criterion']:.4f}); decode "
-            + ", ".join(f"{k} {dm[k]:.4f}" for k in ("mcdpow_cv", "mcd_cv", "mcd_cvgv", "lat_rmse"))
-            + f"; vocoder nll {voc_hist[0]['nll']:.4f} -> {voc_hist[-1]['nll']:.4f}, copy "
-            + ", ".join(f"{k} {cs[k]:.4f}" for k in ("mcdpow", "mcd", "f0_rel_err_median",
-                                                     "uv_agree")))
+    # ---- every stage's artifacts ----
+    wavs = [w for spk in RECIPE_SPEAKERS for e in (False, True) for w in paths.wavs(spk, e)]
+    feats = [f for spk in RECIPE_SPEAKERS for e in (False, True) for f in paths.h5s(spk, e)]
+    art = {"features": len(feats) == len(wavs) == 2 * (RECIPE_UTTS + 1)
+           and all(read_store(f, "/cvuvlogf0fil_ap").shape[1] == 4 for f in feats)}
+    art["spk_stat"] = all(os.path.getsize(os.path.join(paths.work, "init_spk_stat",
+                                                       f"{spk}.{x}.txt")) > 0
+                          for spk in RECIPE_SPEAKERS for x in ("f0", "pow"))
+    art["stats"] = all(os.path.exists(p) for p in (paths.stats(src), paths.stats(trg),
+                                                   paths.stats_jnt()))
+    with open(os.path.join(expdir, "history.json")) as f:
+        hist = json.load(f)
+    best = hist["best"]["epoch"]
+    art["history"] = best in (1, 2) and len(hist["history"]) == RECIPE_EPOCHS
+    art["checkpoints"] = all(os.path.exists(os.path.join(expdir, f"checkpoint-{n}.pkl"))
+                             for n in ("1", "2", "latest", "final"))
+    model_id = f"{exp.name()}_ep{best}"
+    cvgv = {f"{k}_{m}": read_store(paths.stats(src), f"/{k}_{m}_{model_id}")
+            for k in ("cvgv", "cvgvsrc", "cvgvtrg") for m in ("mean", "var")}
+    art["cvgv"] = all(v.shape == (cfg.out_dim - 1,) and np.isfinite(v).all()
+                      for v in cvgv.values())
+    with open(os.path.join(expdir, f"decode_metrics_ep{best}.json")) as f:
+        dm = json.load(f)
+    art["decode_metrics"] = len(dm) == 18 and all(np.isfinite(v) for v in dm.values())
+    lib = dsp_lib.get_lib()
+    T, Tt = (len(read_store(paths.h5s(spk, True)[0], "/feat_org_lf0"))
+             for spk in (src, trg))
+    out_wavs = {}
+    outdir = os.path.join(expdir, f"wav_cv_ep{best}")
+    for name in sorted(os.listdir(outdir)):
+        out_wavs[name] = _read_wav_samples(os.path.join(outdir, name))
+    want_len = {f"e0{sfx}.wav": lib.cvdsp_synthesis_length(
+        Tt if sfx.endswith("_trg") else T, fs, exp.feature.shiftms)
+        for sfx in ("_noGV", "_noGV_src", "_noGV_trg", "_GV", "_GV_src", "_GV_trg",
+                    "_DiffGVF0")}
+    want_len["e0_DiffGV.wav"] = len(_read_wav_samples(eval_wavs[src][0]))
+    art["wavs"] = sorted(out_wavs) == sorted(want_len) and all(
+        len(y) == want_len[n] and np.abs(y).max() > 0 for n, y in out_wavs.items())
+    post = os.path.join(expdir, f"posterior_ep{best}.npz")
+    post_frames = {os.path.basename(f)[:-4]: len(read_store(f, "/feat_org_lf0"))
+                   for f in paths.h5s(src, True)[:4]}
+    art["posterior"] = all(
+        read_store(post, f"/{b}/{k}").shape == (n, dim)
+        and np.isfinite(read_store(post, f"/{b}/{k}")).all()
+        for b, n in post_frames.items()
+        for k, dim in (("z_mean", cfg.lat_dim), ("z_std", cfg.lat_dim),
+                       ("cv_mcep_mean", cfg.out_dim), ("cv_mcep_std", cfg.out_dim)))
+    with open(os.path.join(vexpdir, "vocoder_eval.json")) as f:
+        voc_eval = json.load(f)
+    cs = voc_eval["copy_synthesis"]
+    art["vocoder"] = (
+        [h["epoch"] for h in voc_hist] == list(range(1, RECIPE_VOC_EPOCHS + 1))
+        and all(np.isfinite(h["nll"]) for h in voc_hist)
+        and voc_eval["final_nll"] == voc_hist[-1]["nll"]
+        and all(os.path.exists(os.path.join(vexpdir, f"checkpoint-{n}.pkl"))
+                for n in ("latest", str(RECIPE_VOC_EPOCHS)))
+        and len(cs) == 8 and np.isfinite(cs["mcd"]) and 0 <= cs["uv_agree"] <= 1
+        and all(len(_read_wav_samples(os.path.join(vexpdir, "wav_vocoded",
+                                                   os.path.basename(w)))) > 0
+                for w in eval_wavs[trg][:5]))
+    ok &= all(art.values())
+    log("[recipe] artifacts: " + ", ".join(f"{k} {v}" for k, v in art.items())
+        + f"; best epoch {best} (criterion {hist['best']['criterion']:.4f}); decode "
+        + ", ".join(f"{k} {dm[k]:.4f}" for k in ("mcdpow_cv", "mcd_cv", "mcd_cvgv", "lat_rmse"))
+        + f"; vocoder nll {voc_hist[0]['nll']:.4f} -> {voc_hist[-1]['nll']:.4f}, copy "
+        + ", ".join(f"{k} {cs[k]:.4f}" for k in ("mcdpow", "mcd", "f0_rel_err_median",
+                                                 "uv_agree")))
 
-        # ---- the launches of each stage ----
-        r = stage_runs
-        # 4 AR-GRU calls per cycle: K2 and K3 per valid segment of a train
-        # step, K1 per eval batch (one source and one target batch an epoch);
-        # stage 5: 2 K1 launches per training utterance; stage 6: 2 per pair;
-        # stage i per utterance and HMC step (2L + 2) K2 and 2L K3, and one K1
-        # for the posterior predictive; stage v one K4 per eval utterance,
-        # one cuDNN teacher-forced call per train step, no plain loop
-        want = {st: dict(K1=0, K2=0, K3=0, K4=0, scan=0, tf_plain=0, tf_cudnn=0)
-                for st in RECIPE_STAGES}
-        want_k2 = 4 * cfg.n_cyc * sum(v for _, _, v in steps)
-        want["4"].update(K1=RECIPE_EPOCHS * 2 * 4 * cfg.n_cyc, K2=want_k2, K3=want_k2)
-        want["5"]["K1"] = 2 * 2 * RECIPE_N_TRAIN
-        want["6"]["K1"] = 2 * len(eval_wavs[src])
-        want["i"].update(K1=n_post, K2=n_post * hmc_steps * (2 * hmc_cfg.n_leapfrog + 2),
-                         K3=n_post * hmc_steps * 2 * hmc_cfg.n_leapfrog)
-        want["v"].update(K4=len(eval_wavs[trg][:5]), tf_cudnn=RECIPE_VOC_EPOCHS * voc_steps)
-        launches_ok = want_k2 > 0 and all(r[st][k] == v for st, w in want.items()
-                                          for k, v in w.items())
-        ok &= launches_ok
-        for st in RECIPE_STAGES:
-            if any(want[st].values()) or any(r[st][k] for k in want[st]):
-                log(f"[recipe] launches stage {st}: "
-                    + ", ".join(f"{k} {r[st][k]} (want {v})" for k, v in want[st].items()))
-        log(f"[recipe] launches and calls of every stage as wanted "
-            f"{'ok' if launches_ok else 'FAIL'}")
+    # ---- the launches of each stage ----
+    r = stage_runs
+    # 4 AR-GRU calls per cycle: K2 and K3 per valid segment of a train
+    # step, K1 per eval batch (one source and one target batch an epoch);
+    # stage 5: 2 K1 launches per training utterance; stage 6: 2 per pair;
+    # stage i per utterance and HMC step (2L + 2) K2 and 2L K3, and one K1
+    # for the posterior predictive; stage v one K4 per eval utterance,
+    # one cuDNN teacher-forced call per train step, no plain loop
+    want = {st: dict(K1=0, K2=0, K3=0, K4=0, scan=0, tf_plain=0, tf_cudnn=0)
+            for st in RECIPE_STAGES}
+    want_k2 = 4 * cfg.n_cyc * sum(v for _, _, v in steps)
+    want["4"].update(K1=RECIPE_EPOCHS * 2 * 4 * cfg.n_cyc, K2=want_k2, K3=want_k2)
+    want["5"]["K1"] = 2 * 2 * RECIPE_N_TRAIN
+    want["6"]["K1"] = 2 * len(eval_wavs[src])
+    want["i"].update(K1=n_post, K2=n_post * hmc_steps * (2 * hmc_cfg.n_leapfrog + 2),
+                     K3=n_post * hmc_steps * 2 * hmc_cfg.n_leapfrog)
+    want["v"].update(K4=len(eval_wavs[trg][:5]), tf_cudnn=RECIPE_VOC_EPOCHS * voc_steps)
+    launches_ok = want_k2 > 0 and all(r[st][k] == v for st, w in want.items()
+                                      for k, v in w.items())
+    ok &= launches_ok
+    for st in RECIPE_STAGES:
+        if any(want[st].values()) or any(r[st][k] for k in want[st]):
+            log(f"[recipe] launches stage {st}: "
+                + ", ".join(f"{k} {r[st][k]} (want {v})" for k, v in want[st].items()))
+    log(f"[recipe] launches and calls of every stage as wanted "
+        f"{'ok' if launches_ok else 'FAIL'}")
 
-        # ---- the plain path from the same seeds: epoch 1 of stage 4, then stage 5 ----
-        def plain_work(name):
-            work = os.path.join(tmp, name)
-            os.makedirs(os.path.join(work, "exp", exp.name()))
-            os.symlink(os.path.join(paths.work, "hdf5"), os.path.join(work, "hdf5"))
-            shutil.copytree(os.path.join(paths.work, "stats"), os.path.join(work, "stats"))
-            return recipe.RecipePaths(wav_root=wav_root, work=work, n_train=RECIPE_N_TRAIN)
+    # ---- the plain path from the same seeds: epoch 1 of stage 4, then stage 5 ----
+    def plain_work(name):
+        return _plain_work(paths, os.path.join(tmp, name), exp.name())
 
-        plain_exp = experiment(use_pallas=False)
-        plain_exp.train.epoch_count = 1
-        p4 = plain_work("plain4")
-        t0 = time.perf_counter()
-        recipe.run_stages("4", plain_exp, p4, conf_dir=conf, n_jobs=8, device=dev)
-        plain4_s = time.perf_counter() - t0
-        with open(os.path.join(p4.work, "exp", exp.name(), "history.json")) as f:
-            plain_train = json.load(f)["history"][0]["train"]
-        train_rel = _max_rel(hist["history"][0]["train"], plain_train)
-        p5 = plain_work("plain5")
-        for name in ("history.json", f"checkpoint-{best}.pkl"):
-            os.symlink(os.path.join(expdir, name), os.path.join(p5.work, "exp", exp.name(), name))
-        t0 = time.perf_counter()
-        recipe.run_stages("5", plain_exp, p5, conf_dir=conf, n_jobs=8, device=dev)
-        plain5_s = time.perf_counter() - t0
-        plain_cvgv = {k: read_store(p5.stats(src), f"/{k}_{model_id}") for k in cvgv}
-        cvgv_rel = _max_rel(cvgv, plain_cvgv)
-        plain_ok = train_rel < RECIPE_TRAIN_REL and cvgv_rel < RECIPE_CVGV_REL
-        ok &= plain_ok
-        log(f"[recipe] vs plain path: epoch-1 train metrics max rel {train_rel:.3e} (< "
-            f"{RECIPE_TRAIN_REL}; stage 4 plain, 1 epoch: {plain4_s:.1f} s); cvgv statistics max "
-            f"rel {cvgv_rel:.3e} (< {RECIPE_CVGV_REL}; stage 5 plain: {plain5_s:.1f} s) "
-            f"{'ok' if plain_ok else 'FAIL'}")
-        ok &= _teacher_forced_check(dev, os.path.join(vexpdir, "checkpoint-latest.pkl"),
-                                    voc_train, paths.h5s(trg)[:RECIPE_N_TRAIN])
+    plain_exp = experiment(use_pallas=False)
+    plain_exp.train.epoch_count = 1
+    p4 = plain_work("plain4")
+    t0 = time.perf_counter()
+    recipe.run_stages("4", plain_exp, p4, conf_dir=conf, n_jobs=8, device=dev)
+    plain4_s = time.perf_counter() - t0
+    with open(os.path.join(p4.work, "exp", exp.name(), "history.json")) as f:
+        plain_train = json.load(f)["history"][0]["train"]
+    train_rel = _max_rel(hist["history"][0]["train"], plain_train)
+    p5 = plain_work("plain5")
+    for name in ("history.json", f"checkpoint-{best}.pkl"):
+        os.symlink(os.path.join(expdir, name), os.path.join(p5.work, "exp", exp.name(), name))
+    t0 = time.perf_counter()
+    recipe.run_stages("5", plain_exp, p5, conf_dir=conf, n_jobs=8, device=dev)
+    plain5_s = time.perf_counter() - t0
+    plain_cvgv = {k: read_store(p5.stats(src), f"/{k}_{model_id}") for k in cvgv}
+    cvgv_rel = _max_rel(cvgv, plain_cvgv)
+    plain_ok = train_rel < RECIPE_TRAIN_REL and cvgv_rel < RECIPE_CVGV_REL
+    ok &= plain_ok
+    log(f"[recipe] vs plain path: epoch-1 train metrics max rel {train_rel:.3e} (< "
+        f"{RECIPE_TRAIN_REL}; stage 4 plain, 1 epoch: {plain4_s:.1f} s); cvgv statistics max "
+        f"rel {cvgv_rel:.3e} (< {RECIPE_CVGV_REL}; stage 5 plain: {plain5_s:.1f} s) "
+        f"{'ok' if plain_ok else 'FAIL'}")
+    ok &= _teacher_forced_check(dev, os.path.join(vexpdir, "checkpoint-latest.pkl"),
+                                voc_train, paths.h5s(trg)[:RECIPE_N_TRAIN])
     log(f"[recipe] {'ok' if ok else 'FAIL'}")
     return ok, totals
 
@@ -1592,6 +1650,328 @@ def phase_infer(dev):
     return ok, results
 
 
+def _grad_gap(got, want) -> float:
+    """The largest |got - want| of any gradient over that gradient's largest
+    magnitude."""
+    return max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-12)
+               for g, w in zip(got, want))
+
+
+def phase_variants(dev, tmp: str):
+    """The model variants on phase 7's corpus plus a third speaker: the
+    many-to-many recipe (``run_mult_stages`` 3, 4, 5, 6 in turn, each
+    stage's launches read around it), its epoch 1 and stage 5m on the plain
+    path, the speaker classifier (``run_train_cls``) and the VQ-CycleVAE
+    (``run_train_vq``) trainers with their launches, one step of each on both
+    routes, and K1, K2 and K3 at the shapes these paths add."""
+    from cyclevae_tpu_torch.models import gru_vae
+    from cyclevae_tpu_torch.models.gru_vae import init_gru_rnn
+    from cyclevae_tpu_torch.ops.cuda_gru import cuda_gru_ar, cuda_gru_ar_bwd, cuda_gru_ar_train
+    from cyclevae_tpu_torch.pipeline import recipe, recipe_mult, train_stage_cls, train_stage_mult
+    from cyclevae_tpu_torch.pipeline import train_stage_vq
+    from cyclevae_tpu_torch.pipeline.dataset import SingleVAEDataset
+    from cyclevae_tpu_torch.pipeline.dataset_mult import (MultSpkEvalClsDataset,
+                                                          MultSpkTrainClsDataset)
+    from cyclevae_tpu_torch.pipeline.features import extract_one
+    from cyclevae_tpu_torch.pipeline.stats import calc_stats, calc_stats_joint
+    from cyclevae_tpu_torch.pipeline.train_stage import model_config
+    from cyclevae_tpu_torch.utils.config import ExperimentConfig, ModelConfig, TrainConfig
+    from cyclevae_tpu_torch.utils.store import read_store
+    from cyclevae_tpu_torch.utils.wavio import write_wav
+    from cyclevae_tpu_torch.vi.train import _leaves
+
+    def experiment(**model):
+        src, trg = RECIPE_SPEAKERS
+        return ExperimentConfig(model=ModelConfig(spk_src=src, spk_trg=trg, **model),
+                                train=TrainConfig(epoch_count=VARIANT_EPOCHS))
+
+    exp = experiment()
+    tcfg, fs = exp.train, exp.feature.fs
+    src_list, trg_list = [list(RECIPE_SPEAKERS)[0]], [list(RECIPE_SPEAKERS)[1], VARIANT_SPEAKER]
+    all_spk = src_list + trg_list
+    wav_root, conf = os.path.join(tmp, "wav"), os.path.join(tmp, "conf")
+    paths = recipe.RecipePaths(wav_root=wav_root, work=os.path.join(tmp, "work"),
+                               n_train=RECIPE_N_TRAIN)
+    expdir = os.path.join(paths.work, "exp", exp.name() + "_m2m")
+
+    # ---- speaker C: its wavs from the seed (the same content as A's and
+    # B's), stage 1's analysis of each file and stage 2's statistics ----
+    t0 = time.perf_counter()
+    minf0, maxf0, pw = VARIANT_RANGE
+    with open(os.path.join(conf, f"{VARIANT_SPEAKER}.f0"), "w") as f:
+        f.write(f"{minf0} {maxf0}")
+    with open(os.path.join(conf, f"{VARIANT_SPEAKER}.pow"), "w") as f:
+        f.write(f"{pw}")
+    utts = [(False, f"utt{i}", VARIANT_F0 * (1 + 0.03 * i), sec, SEED + 40 + i)
+            for i, sec in enumerate(RECIPE_SECONDS)]
+    utts.append((True, "e0", VARIANT_F0 * 1.02, RECIPE_EVAL_SECONDS, SEED + 60))
+    for eval_set, name, f0, sec, seed in utts:
+        d = os.path.join(wav_root, "eval", VARIANT_SPEAKER) if eval_set else \
+            os.path.join(wav_root, VARIANT_SPEAKER)
+        os.makedirs(d, exist_ok=True)
+        wav = os.path.join(d, f"{name}.wav")
+        write_wav(wav, fs, speechlike_wav(f0, int(sec * fs), seed=seed))
+        extract_one(wav, os.path.join(paths.h5dir(VARIANT_SPEAKER, eval_set), f"{name}.npz"),
+                    None, exp.feature, minf0, maxf0, pw)
+    calc_stats(paths.h5s(VARIANT_SPEAKER)[:RECIPE_N_TRAIN], paths.stats(VARIANT_SPEAKER),
+               spkr=VARIANT_SPEAKER)
+    log(f"[variants] speaker {VARIANT_SPEAKER} (~{VARIANT_F0:.0f} Hz): {len(utts)} utterances "
+        f"analysed and its statistics in {time.perf_counter() - t0:.2f} s host; "
+        f"speakers src {src_list} trg {trg_list}")
+
+    # ---- the many-to-many recipe: counts set to 0 just before each stage,
+    # read just after ----
+    cfg = dataclasses.replace(model_config(exp), n_spk=len(all_spk))
+    log(f"[variants] m2m flagship hl{cfg.hidden_layers} hu{cfg.hidden_units} ld{cfg.lat_dim} "
+        f"n_cyc{cfg.n_cyc} n_spk{cfg.n_spk} use_pallas {cfg.use_pallas}; bsu "
+        f"{tcfg.batch_size_utt}, {tcfg.epoch_count} epochs, n_train {RECIPE_N_TRAIN}")
+    scans, steps = [0], []
+    orig = {"scan": gru_vae.gru_ar_scan, "step": train_stage_mult.make_train_step}
+
+    def counted_scan(*a, **k):
+        scans[0] += 1
+        return orig["scan"](*a, **k)
+
+    def counts():
+        return dict(K1=cuda_gru_ar.launches, K2=cuda_gru_ar_train.launches,
+                    K3=cuda_gru_ar_bwd.launches, scan=scans[0])
+
+    def zero():
+        cuda_gru_ar.launches = cuda_gru_ar_train.launches = cuda_gru_ar_bwd.launches = 0
+        scans[0] = 0
+
+    ok = True
+    totals = {"K1": 0, "K2": 0, "K3": 0}
+    runs = {}
+    gru_vae.gru_ar_scan = counted_scan
+    train_stage_mult.make_train_step = timed_steps(orig["step"], steps)
+    try:
+        for stage in "3456":
+            zero()
+            t0 = time.perf_counter()
+            recipe_mult.run_mult_stages(stage, exp, paths, src_list, trg_list, conf_dir=conf,
+                                        device=dev)
+            torch.cuda.synchronize()
+            runs[f"{stage}m"] = dict(sec=time.perf_counter() - t0, **counts())
+    finally:
+        gru_vae.gru_ar_scan = orig["scan"]
+        train_stage_mult.make_train_step = orig["step"]
+
+    secs = [t for t, _, _ in steps]
+    log(f"[variants] stage 4m: {len(steps)} train steps, s/step "
+        + ", ".join(f"{t:.4f}" for t in secs) + "; real frames/s "
+        + ", ".join(f"{n / t:.0f}" for t, n, _ in steps)
+        + "; valid segments per step " + ", ".join(str(v) for _, _, v in steps))
+
+    # ---- its artifacts ----
+    with open(os.path.join(expdir, "history.json")) as f:
+        hist = json.load(f)
+    best = hist["best"]["epoch"]
+    model_id = f"{exp.name()}_m2m_ep{best}"
+    feats = [f for s in all_spk for e in (False, True) for f in paths.h5s(s, e)]
+    art = {"cv_excitation": len(feats) == 3 * (RECIPE_UTTS + 1) and all(
+        read_store(f, f"/cvuvlogf0fil_ap_{o}").shape[1] == 4
+        for f in feats for o in all_spk if f"{os.sep}{o}{os.sep}" not in f)}
+    art["history"] = best in (1, 2) and [h["epoch"] for h in hist["history"]] == [1, 2] and all(
+        np.isfinite(v) for h in hist["history"] for part in ("train", "eval")
+        for v in h[part].values())
+    art["checkpoints"] = all(os.path.exists(os.path.join(expdir, f"checkpoint-{n}.pkl"))
+                             for n in (1, 2))
+    cvgv = {f"{s}/{t}/{m}": read_store(paths.stats(s), f"/cvgv_{m}_{t}_{model_id}")
+            for s in all_spk for t in all_spk for m in ("mean", "var")}
+    art["cvgv"] = len(cvgv) == 18 and all(v.shape == (cfg.out_dim - 1,) and np.isfinite(v).all()
+                                          for v in cvgv.values())
+    with open(os.path.join(expdir, f"decode_metrics_m2m_ep{best}.json")) as f:
+        dm = json.load(f)
+    art["decode_metrics"] = len(dm["per_direction"]) == 6 and all(
+        np.isfinite(v) for d in [dm["overall"]] + list(dm["per_direction"].values())
+        for v in d.values())
+    outdir = os.path.join(expdir, f"wav_m2m_ep{best}")
+    names = sorted(os.listdir(outdir))
+    # every speaker's eval utterance is e0.wav: a target's directions share a name
+    want_names = sorted({f"e0_to_{t}{sfx}.wav" for t in all_spk for sfx in ("_noGV", "_GV")}
+                        | {f"e0_to_mix-{w:.2f}-{1 - w:.2f}-0.00{sfx}.wav"
+                           for w in (0.75, 0.5, 0.25) for sfx in ("_noGV", "_GV")})
+    art["wavs"] = names == want_names and all(
+        np.abs(_read_wav_samples(os.path.join(outdir, n))).max() > 0 for n in names)
+    ok &= all(art.values())
+    log("[variants] m2m artifacts: " + ", ".join(f"{k} {v}" for k, v in art.items())
+        + f"; best epoch {best}; eval mcdpow_rec " + ", ".join(
+            f"{h['eval']['mcdpow_rec_mean']:.4f}" for h in hist["history"])
+        + "; decode overall " + ", ".join(f"{k} {v:.4f}" for k, v in dm["overall"].items()))
+
+    # ---- the launches of each stage ----
+    n_eval = len([f for s in all_spk for f in paths.h5s(s, True)])
+    n_pairs = sum(min(len(paths.wavs(s, True)), len(paths.wavs(t, True)))
+                  for s in all_spk for t in all_spk if s != t)
+    want_k2 = 4 * cfg.n_cyc * sum(v for _, _, v in steps)
+    want = {"3m": dict(K1=0, K2=0, K3=0, scan=0),
+            # 4 AR-GRU calls per cycle: K2 and K3 per valid segment, K1 per eval batch
+            "4m": dict(K1=VARIANT_EPOCHS * -(-n_eval // tcfg.batch_size_utt_eval) * 4 * cfg.n_cyc,
+                       K2=want_k2, K3=want_k2, scan=0),
+            # an encode and one decode of all N directions per training utterance
+            "5m": dict(K1=2 * RECIPE_N_TRAIN * len(all_spk), K2=0, K3=0, scan=0),
+            # an encode and a decode per eval pair and per interpolation
+            "6m": dict(K1=2 * n_pairs + 2 * 3, K2=0, K3=0, scan=0)}
+    launches_ok = want_k2 > 0 and all(runs[st][k] == v for st, w in want.items()
+                                      for k, v in w.items())
+    ok &= launches_ok
+    for st in want:
+        totals = {k: totals[k] + runs[st][k] for k in totals}
+        log(f"[variants] stage {st}: {runs[st]['sec']:.2f} s host; launches "
+            + ", ".join(f"{k} {runs[st][k]} (want {v})" for k, v in want[st].items()))
+    log(f"[variants] m2m launches as wanted {'ok' if launches_ok else 'FAIL'}")
+
+    # ---- the plain path from the same seeds: epoch 1 of 4m, then 5m ----
+    def plain_work(name):
+        return _plain_work(paths, os.path.join(tmp, name), exp.name() + "_m2m")
+
+    plain_exp = experiment(use_pallas=False)
+    plain_exp.train.epoch_count = 1
+    p4 = plain_work("variants_plain4")
+    t0 = time.perf_counter()
+    recipe_mult.run_mult_stages("4", plain_exp, p4, src_list, trg_list, conf_dir=conf, device=dev)
+    plain4_s = time.perf_counter() - t0
+    with open(os.path.join(p4.work, "exp", exp.name() + "_m2m", "history.json")) as f:
+        train_rel = _max_rel(hist["history"][0]["train"], json.load(f)["history"][0]["train"])
+    p5 = plain_work("variants_plain5")
+    for name in ("history.json", f"checkpoint-{best}.pkl"):
+        os.symlink(os.path.join(expdir, name),
+                   os.path.join(p5.work, "exp", exp.name() + "_m2m", name))
+    t0 = time.perf_counter()
+    recipe_mult.run_mult_stages("5", plain_exp, p5, src_list, trg_list, conf_dir=conf, device=dev)
+    plain5_s = time.perf_counter() - t0
+    cvgv_rel = _max_rel(cvgv, {k: read_store(p5.stats(k.split("/")[0]),
+                                             f"/cvgv_{k.split('/')[2]}_{k.split('/')[1]}"
+                                             f"_{model_id}") for k in cvgv})
+    plain_ok = train_rel < RECIPE_TRAIN_REL and cvgv_rel < RECIPE_CVGV_REL
+    ok &= plain_ok
+    log(f"[variants] m2m vs plain path: epoch-1 train metrics max rel {train_rel:.3e} (< "
+        f"{RECIPE_TRAIN_REL}; stage 4m plain, 1 epoch: {plain4_s:.1f} s); cvgv statistics max "
+        f"rel {cvgv_rel:.3e} (< {RECIPE_CVGV_REL}; stage 5m plain: {plain5_s:.1f} s) "
+        f"{'ok' if plain_ok else 'FAIL'}")
+
+    # ---- the classifier and VQ trainers: counts set to 0 just before each,
+    # read just after ----
+    train_files = [f for s in all_spk for f in paths.h5s(s)[:RECIPE_N_TRAIN]]
+    evals = ([paths.h5s(s, True) for s in src_list], [paths.h5s(s, True) for s in trg_list])
+    stats_cls = os.path.join(paths.work, "stats", "stats_jnt_cls.npz")
+    calc_stats_joint(train_files, [], stats_cls)
+    vq_src = paths.h5s(src_list[0])[:RECIPE_N_TRAIN]
+    vq_trg = paths.h5s(trg_list[0])[:RECIPE_N_TRAIN]
+    bsu = tcfg.batch_size_utt
+    n_cls_pairs = len(MultSpkEvalClsDataset(*evals, src_list, trg_list))
+    trainers = {
+        "cls": (lambda: train_stage_cls.run_train_cls(
+            exp, train_files, *evals, src_list, trg_list, stats_cls,
+            os.path.join(paths.work, "exp", exp.name() + "_cls"), device=dev),
+            # one K2 and one K3 a step; one K1 per eval forward, 2 per eval pair
+            dict(K2=VARIANT_EPOCHS * -(-len(train_files) // bsu),
+                 K3=VARIANT_EPOCHS * -(-len(train_files) // bsu),
+                 K1=VARIANT_EPOCHS * 2 * n_cls_pairs, scan=0)),
+        "vq": (lambda: train_stage_vq.run_train_vq(
+            exp, vq_src, vq_trg, src_list[0], paths.stats_jnt(),
+            os.path.join(paths.work, "exp", exp.name() + "_vq"), device=dev),
+            # two encodes and three decodes a step, all under autograd
+            dict(K2=VARIANT_EPOCHS * -(-(len(vq_src) + len(vq_trg)) // bsu) * 5,
+                 K3=VARIANT_EPOCHS * -(-(len(vq_src) + len(vq_trg)) // bsu) * 5,
+                 K1=0, scan=0)),
+    }
+    gru_vae.gru_ar_scan = counted_scan
+    res = {}
+    try:
+        for name, (run, want_n) in trainers.items():
+            zero()
+            t0 = time.perf_counter()
+            res[name] = run()
+            torch.cuda.synchronize()
+            runs[name] = dict(sec=time.perf_counter() - t0, **counts())
+            good = all(runs[name][k] == v for k, v in want_n.items())
+            ok &= good
+            totals = {k: totals[k] + runs[name][k] for k in totals}
+            h = res[name]["history"]
+            finite = all(np.isfinite(v) for e in h for v in e["train"].values())
+            ok &= finite and len(h) == VARIANT_EPOCHS
+            score = ([("eval_acc", e["eval_acc"]) for e in h] if name == "cls"
+                     else [("perplexity", e["train"]["perplexity"]) for e in h])
+            extra = f"{score[0][0]} " + ", ".join(f"{v:.3f}" for _, v in score)
+            log(f"[variants] {name}: {len(h)} epochs in {runs[name]['sec']:.2f} s host; loss "
+                + ", ".join(f"{e['train']['loss']:.4f}" for e in h) + f"; {extra}; launches "
+                + ", ".join(f"{k} {runs[name][k]} (want {v})" for k, v in want_n.items())
+                + f" {'ok' if good and finite else 'FAIL'}")
+    finally:
+        gru_vae.gru_ar_scan = orig["scan"]
+
+    # ---- one step of each trainer, kernel route against the plain path:
+    # the same weights, batch and draws (lr 0, so the step leaves the
+    # weights and hands back the gradients) ----
+    Record, Replay = _draws_classes()
+    ccfg = train_stage_cls.classifier_config(exp, len(all_spk))
+    cls_ds = MultSpkTrainClsDataset(train_files, src_list, trg_list, 1, seed=tcfg.seed)
+    cls_batch = train_stage_cls._collate_cls([cls_ds[i] for i in range(bsu)], tcfg.batch_size)
+    enc_cfg, dec_cfg = train_stage_vq.make_vq_cfgs(exp)
+    vq_ds = SingleVAEDataset(vq_src + vq_trg, vq_trg + vq_src, src_list[0], n_spk=exp.model.n_spk)
+    vq_batch = train_stage_vq._collate_vq([vq_ds[i] for i in range(bsu)], tcfg.batch_size)
+    mean, scale = (read_store(stats_cls, f"/{k}_feat_org_lf0_jnt") for k in ("mean", "scale"))
+
+    def cls_step(use_pallas, draws):
+        params = init_gru_rnn(torch.Generator(device=dev).manual_seed(SEED + 90), ccfg)
+        params["scale_in"] = {"mean": torch.as_tensor(mean, dtype=torch.float32, device=dev),
+                              "scale": torch.as_tensor(scale, dtype=torch.float32, device=dev)}
+        leaves = _leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        m = train_stage_cls.make_classifier_step(ccfg, use_pallas)(
+            params, torch.optim.SGD(leaves, lr=0.0), cls_batch, draws)
+        return float(m["loss"]), [t.grad for t in leaves]
+
+    def vq_step(use_pallas, draws):
+        params = train_stage_vq.init_vq(torch.Generator(device=dev).manual_seed(SEED + 91),
+                                        enc_cfg, dec_cfg, 64, mean, scale, exp.model.stdim, dev)
+        leaves = train_stage_vq.vq_trainable(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        m = train_stage_vq.make_vq_step(enc_cfg, dec_cfg, exp.model.stdim, 64,
+                                        use_pallas=use_pallas)(
+            params, torch.optim.SGD(leaves, lr=0.0), vq_batch, draws)
+        return float(m["loss"]), [t.grad for t in leaves]
+
+    for name, step, T in (("cls", cls_step, cls_batch["feats"].shape[1]),
+                          ("vq", vq_step, vq_batch["feats"].shape[1])):
+        rec = Record(torch.Generator(device=dev).manual_seed(SEED + 92))
+        t0 = time.perf_counter()
+        loss_k, grads_k = step(True, rec)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loss_p, grads_p = step(False, Replay(rec.seq))
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        rel, gap = abs(loss_k - loss_p) / abs(loss_p), _grad_gap(grads_k, grads_p)
+        good = rel < VARIANT_LOSS_REL and gap < GRAD_SCALE_TOL and np.isfinite(loss_k)
+        ok &= good
+        log(f"[variants] {name} step B={bsu} T={T}, kernel route vs plain path on the same "
+            f"draws: loss {loss_k:.6f} / {loss_p:.6f}, rel {rel:.3e} (< {VARIANT_LOSS_REL}); "
+            f"gradients max gap {gap:.3e} of scale (< {GRAD_SCALE_TOL}); {kernel_s:.3f} s / "
+            f"{plain_s:.3f} s host {'ok' if good else 'FAIL'}")
+
+    # ---- the kernel shapes these paths add, timed beside their bounds ----
+    gen = torch.Generator(device=dev).manual_seed(SEED + 93)
+    conv_in = exp.model.in_dim * 9
+    rows = _train_rows(dev, gen, [
+        ("cls", bsu, len(all_spk), conv_in, VARIANT_T, ("gru_ar_train", "gru_ar_bwd")),
+        ("vq_encoder", bsu, exp.model.lat_dim, conv_in, VARIANT_T,
+         ("gru_ar_train", "gru_ar_bwd"))], (torch.float32,), tag="variants")
+    rows.update(_k1_rows(dev, gen, (
+        ("m2m_decoder_N", len(all_spk), exp.model.out_dim, (exp.model.lat_dim + len(all_spk)) * 9),
+        ("cls_eval", 1, len(all_spk), conv_in)), VARIANT_T, (torch.float32,), tag="variants"))
+    ok &= all(r["ok"] for r in rows.values())
+    log(f"[variants] launches on the main paths: K1 {totals['K1']}, K2 {totals['K2']}, "
+        f"K3 {totals['K3']}")
+    log(f"[variants] {'ok' if ok else 'FAIL'}")
+    return ok, totals, rows
+
+
 def _read_wav_samples(path: str) -> np.ndarray:
     from scipy.io import wavfile
     return wavfile.read(path)[1].astype(np.float64)
@@ -1629,14 +2009,16 @@ def main() -> int:
     train_ok, (k2_launches, k3_launches) = phase_train(dev)
     vocode_ok, k4_launches = phase_vocode(dev)
     wav_ok, wav_launches = phase_convert_wav(dev)
-    recipe_ok, recipe_launches = phase_recipe(dev)
-    infer_ok, _ = phase_infer(dev)
-    launches += wav_launches + recipe_launches["K1"]
-    k2_launches += recipe_launches["K2"]
-    k3_launches += recipe_launches["K3"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_recipe") as tmp:
+        recipe_ok, recipe_launches = phase_recipe(dev, tmp)
+        infer_ok, _ = phase_infer(dev)
+        variants_ok, variant_launches, _ = phase_variants(dev, tmp)
+    launches += wav_launches + recipe_launches["K1"] + variant_launches["K1"]
+    k2_launches += recipe_launches["K2"] + variant_launches["K2"]
+    k3_launches += recipe_launches["K3"] + variant_launches["K3"]
     k4_launches += recipe_launches["K4"]
-    ok = (main_ok and train_ok and vocode_ok and wav_ok and recipe_ok and infer_ok and voc_kern_ok
-          and all(r["ok"] for r in kern.values())
+    ok = (main_ok and train_ok and vocode_ok and wav_ok and recipe_ok and infer_ok and variants_ok
+          and voc_kern_ok and all(r["ok"] for r in kern.values())
           and all(r["ok"] for r in train_kern.values()))
 
     def entry(name, source, replaces, n, r):

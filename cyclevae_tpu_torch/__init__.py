@@ -13,7 +13,8 @@ Sub-packages
                  a prefetch thread.
 - ``models``   : GRU-VAE nets as plain functions on parameter dicts,
                  parameter init from a ``torch.Generator``, sampling, KL
-                 terms, the training forward's draws; the WaveRNN vocoder.
+                 terms, the training forward's draws; the WaveRNN vocoder;
+                 the VQ helpers and a diagonal GMM.
 - ``ops``      : the plain AR-GRU scan and the CUDA AR-GRU kernels
                  (``csrc/gru_ar.cu``: inference and training forward;
                  ``csrc/gru_ar_bwd.cu``: the backward), the autograd
@@ -21,12 +22,14 @@ Sub-packages
                  (``csrc/wavernn.cu``), all built with ``nvcc`` at first use.
 - ``vi``       : model assembly, the training core (cyclic ELBO, TBPTT
                  train step, Adam), checkpoints (the port's, and JAX's read
-                 without JAX).
+                 and resumed without JAX).
 - ``pipeline`` : the one-to-one recipe (``recipe.run_stages``, ``python -m
                  cyclevae_tpu_torch``): feature extraction, statistics,
                  converted excitation, training (``run_train``), GV
                  calibration, conversion (``Codec``, ``decode_pair``); and
-                 neural-vocoder synthesis (``synthesize_vocoder``).
+                 neural-vocoder synthesis (``synthesize_vocoder``); the
+                 many-to-many recipe (``recipe_mult``), the speaker
+                 classifier and the VQ-CycleVAE trainers.
 - ``interop``  : JAX parameter pytrees <-> the port's tensors.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -1,8 +1,8 @@
 """Stages a/2/3: speaker statistics, joint statistics, converted excitation.
 
 A copy of ``cyclevae_tpu/pipeline/stats.py`` over the port's feature store
-(:mod:`cyclevae_tpu_torch.utils.store`), but for the many-to-many stage 3
-(``extract_cv_excitation_mult``), which waits for the many-to-many recipe.
+(:mod:`cyclevae_tpu_torch.utils.store`), the many-to-many stage 3
+(``extract_cv_excitation_mult``) included.
 Reference: src/bin/spk_stat.py (stage a: F0/power histograms for conf files),
 calc_stats_vc.py (stage 2: per-speaker streaming mean/scale + GV + F0 stats),
 calc_stats_vc_joint.py (joint src+trg stats used for model normalization),
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import logging
 import os
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -145,3 +145,27 @@ def extract_cv_excitation(feat_files: List[str], stats_self: str,
         cont_f0_lpf = low_pass_filter(cont_f0, frame_fs, cutoff=20)
         cvlogf0fil = np.expand_dims(np.log(cont_f0_lpf), axis=-1)
         write_store(filename, "/cvuvlogf0fil_ap", np.c_[cvuv, cvlogf0fil, ap])
+
+
+def extract_cv_excitation_mult(feat_files: List[str], stats_self: str,
+                               partner_stats: Dict[str, str], fs: int,
+                               shiftms: float = 5.0):
+    """Many-to-many stage 3: one converted-excitation dataset PER partner
+    speaker, keyed ``/cvuvlogf0fil_ap_<spk>`` (reference dataset.py:114-131
+    read contract).  ``partner_stats``: {spk_name: stats file path}."""
+    lm_self = read_store(stats_self, "/lf0_range_mean")
+    ls_self = read_store(stats_self, "/lf0_range_std")
+    stdim, endim = _ap_dims(fs)
+    frame_fs = int(1.0 / (shiftms * 0.001))
+    for filename in feat_files:
+        ap = read_store(filename, "/feat_org_lf0")[:, stdim:endim]
+        f0 = read_store(filename, "/f0_range")
+        for spk, stats_other in partner_stats.items():
+            lm_o = read_store(stats_other, "/lf0_range_mean")
+            ls_o = read_store(stats_other, "/lf0_range_std")
+            cvf0 = convert_f0(f0, lm_self, ls_self, lm_o, ls_o)
+            cvuv, cont_f0 = convert_continuos_f0(cvf0)
+            cvuv = np.expand_dims(cvuv, axis=-1)
+            cont_f0_lpf = low_pass_filter(cont_f0, frame_fs, cutoff=20)
+            cvlogf0fil = np.expand_dims(np.log(cont_f0_lpf), axis=-1)
+            write_store(filename, f"/cvuvlogf0fil_ap_{spk}", np.c_[cvuv, cvlogf0fil, ap])

@@ -12,7 +12,10 @@ The JAX package's pickles name ``cyclevae_tpu.vi.train.CycleVAEParams`` and
 optax's state NamedTuples, so a plain ``pickle.load`` would import JAX.  The
 unpickler here maps ``CycleVAEParams`` to the port's own class and every other
 ``jax`` / ``jaxlib`` / ``optax`` / ``cyclevae_tpu`` class to an inert
-stand-in; of those, only ``params`` is used by the port so far.
+stand-in that keeps its class name and fields.  ``restore_train_state``
+takes either package's checkpoint: from a JAX one, ``opt_state_from_jax``
+turns optax's Adam state into a ``torch.optim`` state dict, and the
+generator is seeded from the JAX key (see there).
 """
 
 from __future__ import annotations
@@ -20,13 +23,13 @@ from __future__ import annotations
 import functools
 import os
 import pickle
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .train import CycleVAEParams, Optimizer, TrainState, params_to
+from .train import _FROZEN, CycleVAEParams, Optimizer, TrainState, params_to
 
 _FOREIGN = ("jax", "jaxlib", "optax", "cyclevae_tpu")
 
@@ -134,17 +137,89 @@ def save_checkpoint(checkpoint_dir: str, params: Union[CycleVAEParams, Dict],
     return path
 
 
+def _find_adam(state, found: List) -> List:
+    """Every optax ``ScaleByAdamState`` stand-in under ``state``: under
+    ``multi_transform``'s ``PartitionState`` (optax >= 0.2.4; its older name
+    ``MultiTransformState``), a ``MaskedState`` and the chain's tuple, where
+    adamw's chain holds more states beside it."""
+    if type(state).__name__ == "ScaleByAdamState":
+        found.append(state)
+    elif isinstance(state, dict):
+        for v in state.values():
+            _find_adam(v, found)
+    elif isinstance(state, (list, tuple)):
+        for v in state:
+            _find_adam(v, found)
+    return found
+
+
+def _trainable_paths(params) -> List[tuple]:
+    """(net index, key path) of each trainable leaf, in the order of
+    ``vi.train.trainable_leaves``."""
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return [p for k, v in tree.items() for p in walk(v, path + (k,))]
+        if isinstance(tree, (list, tuple)):
+            return [p for i, v in enumerate(tree) for p in walk(v, path + (i,))]
+        return [path]
+    return [(n,) + p for n, net in enumerate(params) for k, v in net.items()
+            if k not in _FROZEN for p in walk(v, (k,))]
+
+
+def opt_state_from_jax(opt_state, params: CycleVAEParams, optimizer: Optimizer) -> Dict:
+    """optax's Adam state from a JAX checkpoint (``vi/train.py``'s
+    ``multi_transform`` of ``adam`` or ``adamw`` on the trainable leaves and
+    ``set_to_zero`` on the scalers) as the ``state_dict`` of ``optimizer``
+    over ``trainable_leaves(params)``: per leaf ``exp_avg`` = ``mu``,
+    ``exp_avg_sq`` = ``nu``, ``step`` = ``count`` as a float32 tensor, taken
+    by key path (JAX flattens dicts in sorted key order, the port in
+    insertion order); the param groups are ``optimizer``'s own."""
+    found = _find_adam(opt_state, [])
+    if len(found) != 1:
+        raise ValueError(f"expected one optax ScaleByAdamState in the checkpoint, found {len(found)}")
+    count, mu, nu = found[0]
+    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+
+    def at(tree, path):
+        for k in path:
+            tree = tree[k]
+        return torch.from_numpy(np.array(tree, dtype=np.float32))
+
+    state = {i: {"step": step.clone(), "exp_avg": at(mu, path), "exp_avg_sq": at(nu, path)}
+             for i, path in enumerate(_trainable_paths(params))}
+    groups = optimizer.init(params).state_dict()["param_groups"]
+    return {"state": state, "param_groups": groups}
+
+
+def jax_key_seed(key) -> int:
+    """A ``torch.Generator`` seed from a raw JAX PRNG key's two uint32 words
+    (high word first)."""
+    hi, lo = (int(w) for w in np.asarray(key, dtype=np.uint32).reshape(-1)[-2:])
+    return (hi << 32) | lo
+
+
 def restore_train_state(ckpt: Dict[str, Any], optimizer: Optimizer,
                         device=None) -> TrainState:
-    """A ``TrainState`` from one of the port's checkpoints: the parameters on
-    ``device`` (CUDA unless ``device="cpu"``), a fresh optimizer of ``optimizer`` loaded with the saved
-    state, and a generator on ``device`` with the saved state."""
+    """A ``TrainState`` from a checkpoint of either package: the parameters
+    on ``device`` (CUDA unless ``device="cpu"``), a fresh optimizer of
+    ``optimizer`` loaded with the saved Adam state, and a generator on
+    ``device``.  The port's checkpoint restores the generator's state; a
+    JAX one (``jax_key`` in place of ``rng_state``) cannot, since no JAX key
+    becomes a ``torch.Generator`` stream: the generator is seeded from the
+    key's two words (``jax_key_seed``), deterministically, so a resumed run
+    repeats itself but draws other numbers than the JAX run would.  The
+    numpy generator (``np_rng_state``: the epoch shuffles) restores exactly
+    from either, through ``restore_np_rng``."""
     device = resolve_device(device)
     params = params_to(CycleVAEParams(*(to_torch(net) for net in ckpt["params"])), device)
     opt = optimizer.init(params)
-    opt.load_state_dict(to_torch(ckpt["opt_state"]))
     generator = torch.Generator(device=device)
-    generator.set_state(torch.from_numpy(np.asarray(ckpt["rng_state"], dtype=np.uint8)))
+    if "jax_key" in ckpt:
+        opt.load_state_dict(opt_state_from_jax(ckpt["opt_state"], params, optimizer))
+        generator.manual_seed(jax_key_seed(ckpt["jax_key"]))
+    else:
+        opt.load_state_dict(to_torch(ckpt["opt_state"]))
+        generator.set_state(torch.from_numpy(np.asarray(ckpt["rng_state"], dtype=np.uint8)))
     return TrainState(params, opt, generator, 0)
 
 

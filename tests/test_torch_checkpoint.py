@@ -1,5 +1,6 @@
 """The port reads a real JAX checkpoint (params + optax state) in a process
-where ``jax``, ``optax`` and ``cyclevae_tpu`` cannot be imported."""
+where ``jax``, ``optax`` and ``cyclevae_tpu`` cannot be imported, and
+restores a training state from it there."""
 
 import os
 import subprocess
@@ -45,6 +46,12 @@ want = np.load(want_path)
 assert len(leaves) == len(want.files), (len(leaves), len(want.files))
 for i, leaf in enumerate(leaves):
     np.testing.assert_array_equal(leaf, want[f"a{i}"])
+from cyclevae_tpu_torch.vi.checkpoint import restore_train_state
+from cyclevae_tpu_torch.vi.train import CycleVAEConfig, make_optimizer, trainable_leaves
+ts = restore_train_state(ckpt, make_optimizer(CycleVAEConfig(hidden_units=16)), device="cpu")
+state = ts.opt_state.state_dict()["state"]
+assert len(state) == len(trainable_leaves(ts.params))
+assert all(float(s["step"]) == 0.0 and not s["exp_avg"].any() for s in state.values())
 print("ok", len(leaves))
 """
 

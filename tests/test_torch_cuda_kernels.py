@@ -122,6 +122,8 @@ TRAIN_SHAPES = [
     (3, 25, 1030, 50),   # a ragged last block, Whh rows in shared memory
     (2, 10, 40, 8),      # a small width
     (3, 1, 64, 7),       # one step; B*out not a multiple of 4
+    (5, 560, 1024, 3),   # the speaker classifier: out padded to 4, whole-utterance T
+    (5, 560, 1024, 32),  # the VQ encoder's latent width, whole-utterance T
 ]
 
 
@@ -238,6 +240,8 @@ FWD_EDGE_SHAPES = [
     (False, 3, 1120, 1024, 50),
     (False, 1, 9, 1024, 8), (True, 1, 9, 1024, 8),
     (False, 4, 7, 1030, 50), (True, 10, 7, 1030, 50),
+    (False, 1, 560, 1024, 3),    # the classifier's eval forward: 4 y values in all
+    (False, 3, 560, 1024, 50),   # stage 5m: N = 3 directions in one batch
 ]
 
 

@@ -154,9 +154,11 @@ def test_package_imports_without_jax():
     """Every module of the port imports with jax, optax, cyclevae_tpu and
     h5py blocked, the vocoder slice's, the host DSP's, the recipe's (the
     feature store, stats, train stage, recipe and the CLI module, which runs
-    nothing on import), and stages i and v's (the samplers, the inference
-    stage, the vocoder's dataset and trainer) among them; one HMC step and
-    one vocoder train step run there."""
+    nothing on import), stages i and v's (the samplers, the inference
+    stage, the vocoder's dataset and trainer), and the model variants' (the
+    many-to-many recipe, its trainer and decode, the classifier and VQ
+    trainers, the VQ helpers, the GMM) among them; one HMC step, one vocoder
+    train step, one classifier step, one VQ step and one EM step run there."""
     code = (
         "import sys, importlib, pkgutil\n"
         "for m in ('jax', 'jaxlib', 'optax', 'cyclevae_tpu', 'h5py'):\n"
@@ -174,7 +176,9 @@ def test_package_imports_without_jax():
         "          'pipeline.summary', 'pipeline.train_stage', 'pipeline.recipe', '__main__',\n"
         "          'infer', 'infer.draws', 'infer.dual_averaging', 'infer.logjoint', 'infer.hmc',\n"
         "          'infer.nuts', 'infer.nuts_batch', 'infer.smc', 'pipeline.infer_stage',\n"
-        "          'pipeline.dataset_mult'):\n"
+        "          'pipeline.dataset_mult', 'pipeline.train_stage_mult', 'pipeline.decode_mult',\n"
+        "          'pipeline.recipe_mult', 'pipeline.train_stage_cls', 'pipeline.train_stage_vq',\n"
+        "          'models.vq', 'models.gmm'):\n"
         "    assert 'cyclevae_tpu_torch.' + m in sys.modules, m\n"
         "import numpy as np\n"
         "from cyclevae_tpu_torch.dsp import sptk\n"
@@ -195,6 +199,7 @@ def test_package_imports_without_jax():
         "s, info = hmc_sample_batch(Draws(torch.Generator().manual_seed(1)), lj,\n"
         "                           torch.zeros(2, 6, 4), HMCConfig(0.05, 2, 0, 1))\n"
         "assert s.shape == (1, 2, 6, 4) and torch.isfinite(s).all()\n"
+        "from cyclevae_tpu_torch.models.gru_vae import init_gru_rnn\n"
         "from cyclevae_tpu_torch.models.wavernn import WaveRNNConfig\n"
         "from cyclevae_tpu_torch.pipeline.vocoder_stage import run_train_vocoder\n"
         "from cyclevae_tpu_torch.utils.wavio import write_wav\n"
@@ -206,6 +211,31 @@ def test_package_imports_without_jax():
         "                        os.path.join(d, 'voc'), epochs=1, batch_size=1, clip_frames=4,\n"
         "                        device='cpu')\n"
         "assert np.isfinite(res['history'][0]['nll'])\n"
+        "from cyclevae_tpu_torch.models.gmm import gmm_em_update, init_gmm\n"
+        "from cyclevae_tpu_torch.pipeline import train_stage_cls, train_stage_vq\n"
+        "from cyclevae_tpu_torch.utils.config import ExperimentConfig, ModelConfig\n"
+        "from cyclevae_tpu_torch.vi.train import _leaves\n"
+        "exp = ExperimentConfig(model=ModelConfig(hidden_units=8, lat_dim=4, do_prob=0.0))\n"
+        "ccfg = train_stage_cls.classifier_config(exp, 3)\n"
+        "cp = init_gru_rnn(torch.Generator().manual_seed(0), ccfg)\n"
+        "cl = _leaves(cp)\n"
+        "[t.requires_grad_(True) for t in cl]\n"
+        "m = train_stage_cls.make_classifier_step(ccfg)(cp, torch.optim.Adam(cl), {\n"
+        "    'feats': np.ones((2, 6, 54), np.float32), 'cls': np.zeros((2, 6), np.int32),\n"
+        "    'mask': np.ones((2, 6), np.float32)})\n"
+        "assert np.isfinite(float(m['loss']))\n"
+        "enc, dec = train_stage_vq.make_vq_cfgs(exp)\n"
+        "vp = train_stage_vq.init_vq(torch.Generator().manual_seed(0), enc, dec, 8,\n"
+        "                            np.zeros(54), np.ones(54), 4, 'cpu')\n"
+        "vl = train_stage_vq.vq_trainable(vp)\n"
+        "[t.requires_grad_(True) for t in vl]\n"
+        "b = {'feats': np.ones((2, 6, 54), np.float32), 'src_code': np.ones((2, 6, 2), np.float32),\n"
+        "     'trg_code': np.ones((2, 6, 2), np.float32), 'cv_excit': np.ones((2, 6, 4), np.float32),\n"
+        "     'mask': np.ones((2, 6), np.float32)}\n"
+        "m = train_stage_vq.make_vq_step(enc, dec, 4, 8)(vp, torch.optim.Adam(vl), b)\n"
+        "assert np.isfinite(float(m['loss']))\n"
+        "g = init_gmm(torch.Generator().manual_seed(0), 2, 3, torch.randn(10, 3))\n"
+        "assert np.isfinite(float(gmm_em_update(g, torch.randn(10, 3))[1]))\n"
         "print('imported', len([m for m in sys.modules if m.startswith('cyclevae_tpu_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
