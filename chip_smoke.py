@@ -30,8 +30,9 @@ Phases, one line or more each; any failure exits non-zero:
               through the plain path to check the outputs;
   4. train    the stage-4 train step of the same model (bsu 5, 7 segments of
               80 frames, do_prob 0.5, ``use_pallas``): per dtype one warm-up
-              step and 3 timed steps through ``make_train_step`` with the K2
-              and K3 launch counts read around them; then one step each of
+              step and 10 steps through ``make_train_step`` timed by
+              ``utils.profiling.measure_steps`` (CUDA events, their median),
+              with the K2 and K3 launch counts of each step; then one step each of
               the kernel path and of the plain path (``use_pallas=False``) on
               the same replayed draws, their losses compared;
   5. vocode   neural-vocoder synthesis of converted speech: phase 3's 4
@@ -95,6 +96,17 @@ Phases, one line or more each; any failure exits non-zero:
               classifier's out = 3 and the VQ encoder's out = 32 (B = bsu,
               T = 560) and K1 at stage 5m's B = 3 and the classifier's
               eval B = 1, timed beside their bounds;
+ 10. parallel the data-parallel layer (``cyclevae_tpu_torch.parallel``) on the
+              one card: 2 gloo ranks spawned on cuda:0 (NCCL refuses two
+              ranks on one card; gloo stages each collective through host
+              copies) run the dry run's rank function: one sharded flagship
+              f32 train step over a global batch of 10 (5 per rank), 7
+              segments of 80, with its per-rank launches (8 K2 + 8 K3 per
+              valid segment), 5 more timed; sharded HMC (2 x 4 chains, hu1024,
+              400 frames) and sharded SMC (2 x 128 particles); then 1 NCCL
+              rank takes the same step; each held against the single-device
+              run here on the same generators (losses, the first update's
+              all-reduced gradients, HMC accepts and z, the log-marginal);
 then the card's name and power limit, one JSON line of the kernels, and as
 the last line ``{"ok": true, "device": {...}}``.
 
@@ -141,7 +153,7 @@ WARMUP = [(350, 450), (650, 900)]   # both 560-frame bucket counts
 # bucket of 7 segments of 80 frames, all of them valid)
 SEG_LEN = 80
 TRAIN_FLENS = [560, 300, 417, 489, 351]
-TRAIN_STEPS = 3
+TRAIN_STEPS = 10                    # timed steps per dtype: measure_steps' median
 # the four AR-GRU calls of a training segment: (name, B, out, conv_dim)
 TRAIN_CALLS = [("encoder", 5, 64, 486), ("decoder2B", 10, 50, 306),
                ("cv_encoder", 5, 64, 486), ("cyc_decoder", 5, 50, 306)]
@@ -234,6 +246,30 @@ VARIANT_SPEAKER, VARIANT_F0, VARIANT_RANGE = "SPKC", 170.0, (90.0, 450.0, -25.0)
 VARIANT_EPOCHS = 2
 VARIANT_LOSS_REL = 1e-5
 VARIANT_T = 560                     # the longest whole-utterance bucket (2.5 s at 5 ms)
+# phase 10, the data-parallel layer on the one card of the card's machine:
+# NCCL refuses two ranks on one card, so 2 gloo ranks share cuda:0 (their
+# collectives staged through host copies) and 1 NCCL rank (world size 1)
+# runs alone.  The train step: the flagship f32, global B = 10 (two of
+# phase 4's bsu-5 batches, 5 utterances per rank), 7 segments of 80, do_prob
+# 0.5, against the single-device step on the same generator: per-segment
+# losses within DP_LOSS_REL (float32 sums over two ranks' rows in another
+# order), the first segment's all-reduced gradients within GRAD_SCALE_TOL of
+# scale of the single-device ones (before Adam: its first step is ~lr *
+# sign(g), so a near-0 gradient whose sign flips moves a weight by 2 lr:
+# compare gradients, not weights); sharded HMC at hu1024 on a 400-frame
+# utterance, 2 ranks x 4 chains, L = 4, 2 warm-up steps and 2 samples,
+# against hmc_sample_chains over the same 8 chains (the same accepts, z
+# within DP_Z_REL rel-L2); sharded SMC on the decoder SSM, 2 x 128
+# particles against 256, the log-marginal within DP_LM_REL relative
+DP_RANKS = 2
+DP_TIMED_STEPS = 5
+DP_LOSS_REL = 2e-4
+DP_T = 400
+DP_CHAINS = 8
+DP_HMC = (0.002, 4, 2, 2)               # step size, leapfrogs, warm-up, samples
+DP_Z_REL = 1e-4
+DP_PARTICLES = 256
+DP_LM_REL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -711,6 +747,7 @@ def _draws_classes():
 def phase_train(dev):
     """The stage-4 train step, as ``make_train_step`` drives it."""
     from cyclevae_tpu_torch.ops.cuda_gru import cuda_gru_ar, cuda_gru_ar_bwd, cuda_gru_ar_train
+    from cyclevae_tpu_torch.utils.profiling import measure_steps
     from cyclevae_tpu_torch.vi.train import (CycleVAEConfig, TrainState, init_cyclevae,
                                              make_optimizer, make_train_step)
 
@@ -741,22 +778,28 @@ def phase_train(dev):
     ok = True
     cuda_gru_ar.launches = cuda_gru_ar_train.launches = cuda_gru_ar_bwd.launches = 0
     for dt, (ts, step) in runs.items():
-        before = (cuda_gru_ar_train.launches, cuda_gru_ar_bwd.launches)
-        secs, mets = [], []
-        for _ in range(TRAIN_STEPS):
-            t0 = time.perf_counter()
-            ts, m = step(ts, batch)
-            mets.append(host(m))         # the step ends in a host copy of its metrics
-            secs.append(time.perf_counter() - t0)
-        k2 = (cuda_gru_ar_train.launches - before[0]) / TRAIN_STEPS
-        k3 = (cuda_gru_ar_bwd.launches - before[1]) / TRAIN_STEPS
+        mets, per_step = [], []
+
+        def counted(ts_, batch_):
+            before = (cuda_gru_ar_train.launches, cuda_gru_ar_bwd.launches)
+            ts_, m = step(ts_, batch_)
+            mets.append(m)
+            per_step.append((cuda_gru_ar_train.launches - before[0],
+                             cuda_gru_ar_bwd.launches - before[1]))
+            return ts_, m
+
+        timed = measure_steps(counted, ts, batch, n_steps=TRAIN_STEPS, warmup=0)
+        mets = [host(m) for m in mets]
+        secs, med = timed["step_seconds"], timed["median_seconds"]
         finite = all(np.isfinite(m["loss"]).all() for m in mets)
         valid = all((m["seg_valid"] == 1.0).all() for m in mets)
-        ok &= finite and valid and k2 == want and k3 == want
-        log(f"[train] {dt}: {TRAIN_STEPS} steps, s/step " + ", ".join(f"{t:.4f}" for t in secs)
-            + "; real frames/s " + ", ".join(f"{real_frames / t:.0f}" for t in secs)
-            + f"; K2 {k2:g} and K3 {k3:g} launches per step (want {want}); per-segment loss "
-            + ", ".join(f"{v:.2f}" for v in mets[-1]["loss"])
+        launches_ok = all(k2 == want and k3 == want for k2, k3 in per_step)
+        ok &= finite and valid and launches_ok
+        log(f"[train] {dt}: {TRAIN_STEPS} steps (measure_steps, CUDA events), median s/step "
+            f"{med:.4f} ({real_frames / med:.0f} real frames/s); s/step "
+            + ", ".join(f"{t:.4f}" for t in secs)
+            + f"; K2 and K3 launches per step {sorted(set(per_step))} (want {want} each); "
+            + "per-segment loss " + ", ".join(f"{v:.2f}" for v in mets[-1]["loss"])
             + f"; finite {finite}, all segments valid {valid}")
     launches = (cuda_gru_ar_train.launches, cuda_gru_ar_bwd.launches)
     k1_in_train = cuda_gru_ar.launches
@@ -1972,6 +2015,163 @@ def phase_variants(dev, tmp: str):
     return ok, totals, rows
 
 
+def phase_parallel(dev):
+    """The data-parallel layer (``cyclevae_tpu_torch.parallel``) through the
+    dry run's rank function (``parallel.dryrun.rank_on_device``) in ranks
+    spawned by ``parallel.spawn``: 2 gloo ranks on cuda:0 take one sharded
+    flagship train step (and DP_TIMED_STEPS more, timed), run sharded HMC
+    and sharded SMC; 1 NCCL rank takes the same step; each held against the
+    single-device run in this process on the same generators."""
+    from cyclevae_tpu_torch.infer import (Draws, HMCConfig, SMCConfig, hmc_sample_chains,
+                                          make_decoder_ssm, make_utterance_logjoint, smc_filter)
+    from cyclevae_tpu_torch.ops.cuda_gru import cuda_gru_ar_bwd, cuda_gru_ar_train
+    from cyclevae_tpu_torch.parallel.dryrun import model_of, rank_on_device
+    from cyclevae_tpu_torch.parallel.spawn import spawn_ranks
+    from cyclevae_tpu_torch.utils.profiling import measure_steps
+    from cyclevae_tpu_torch.vi.train import (TrainState, make_optimizer, make_train_step,
+                                             trainable_leaves)
+
+    t_phase = time.perf_counter()
+    (b1, meta), f1 = train_batch(np.random.default_rng(SEED + 2))
+    (b2, _), f2 = train_batch(np.random.default_rng(SEED + 102))
+    batch = {k: np.concatenate([b1[k], b2[k]]) for k in b1}
+    real = np.concatenate([f1, f2])
+    n_segs, real_frames = meta["n_segs"], int(batch["flens"].sum())
+    model = dict(hidden_units=H, mean=real.mean(axis=0), scale=real.std(axis=0) + 1e-3,
+                 seed=SEED + 90)
+    train = dict(tag="flagship f32", seg_len=SEG_LEN, n_segs=n_segs, batch=batch,
+                 rng_seed=SEED + 91, grads=True, **model)
+    rng = np.random.default_rng(SEED + 92)
+    feats = synth_features(rng, DP_T)
+    code = np.tile([1.0, 0.0], (DP_T, 1)).astype(np.float32)
+    infer = dict(feats=feats, code=code, obs_scale=INFER_OBS_SCALE, **model)
+    spec = {"train": [dict(train, timed_steps=DP_TIMED_STEPS)],
+            "hmc": dict(infer, chains=DP_CHAINS, hmc=DP_HMC, draws_seed=SEED + 93),
+            "smc": dict(infer, particles=DP_PARTICLES, draws_seed=SEED + 94)}
+    card = [str(dev)] * DP_RANKS
+
+    t0 = time.perf_counter()
+    # 2 host threads a rank: the ranks' work is on the card, and 8 threads
+    # each would oversubscribe the machine's cores
+    gloo = spawn_ranks(rank_on_device, DP_RANKS, (card, spec), backend="gloo",
+                       timeout_s=600, threads=2)
+    gloo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nccl = spawn_ranks(rank_on_device, 1, (card[:1], {"train": [train]}),
+                       backend="nccl", timeout_s=600, threads=2)[0]
+    nccl_s = time.perf_counter() - t0
+
+    # ---- the single-device runs in this process, the same seeds ----
+    cfg, params = model_of(train, dev)
+    opt = make_optimizer(cfg, lr=1e-4)
+    ts = TrainState(params, opt.init(params),
+                    torch.Generator(device=dev).manual_seed(train["rng_seed"]), 0)
+    grads = []
+
+    def first_update(optimizer, args, kwargs):
+        if not grads:
+            grads.extend(p.grad.detach().cpu().clone() for p in trainable_leaves(ts.params))
+    hook = ts.opt_state.register_step_pre_hook(first_update)
+    step = make_train_step(cfg, opt, SEG_LEN, n_segs)
+    ts, m = step(ts, batch)
+    hook.remove()
+    single_loss = m["loss"].cpu()
+    single = measure_steps(step, ts, batch, n_steps=DP_TIMED_STEPS, warmup=0)
+    cfg_i, params_i = model_of(infer, dev)
+    feats_t, code_t = torch.as_tensor(feats, device=dev), torch.as_tensor(code, device=dev)
+    lj = make_utterance_logjoint(params_i, cfg_i, feats_t, code_t, obs_scale=INFER_OBS_SCALE)
+    z0 = torch.zeros((DP_CHAINS, DP_T, cfg_i.lat_dim), device=dev)
+    t0 = time.perf_counter()
+    s_ref, _ = hmc_sample_chains(Draws(torch.Generator(device=dev).manual_seed(SEED + 93)), lj,
+                                 z0, HMCConfig(*DP_HMC))
+    torch.cuda.synchronize()
+    hmc_single_s = time.perf_counter() - t0
+    init, prop, logw = make_decoder_ssm(params_i, cfg_i, feats_t, code_t,
+                                        obs_scale=INFER_OBS_SCALE)
+    t0 = time.perf_counter()
+    _, smc_ref = smc_filter(Draws(torch.Generator(device=dev).manual_seed(SEED + 94)), DP_T,
+                            init, prop, logw, SMCConfig(n_particles=DP_PARTICLES))
+    lm_ref = float(smc_ref["log_marginal"])
+    smc_single_s = time.perf_counter() - t0
+
+    # ---- the checks ----
+    ok = True
+    want_seg = 8 * n_segs            # 8 K2 + 8 K3 per valid segment, per rank
+    steps = DP_HMC[2] + DP_HMC[3]
+    c_local = DP_CHAINS // DP_RANKS
+    want_hmc = {"K1": 0, "K2": steps * c_local * (2 * DP_HMC[1] + 2),
+                "K3": steps * c_local * 2 * DP_HMC[1]}
+    launches = {"K2": 0, "K3": 0}
+    for r, res in enumerate(gloo):
+        t = res["train"][0]
+        rel = float(((t["metrics"]["loss"] - single_loss).abs() / single_loss.abs()).max())
+        gap = _grad_gap(t["grads"], grads)
+        n = t["launches"]
+        good = (rel < DP_LOSS_REL and gap <= GRAD_SCALE_TOL and n["K2"] == n["K3"] == want_seg
+                and n["K1"] == 0)
+        ok &= good
+        log(f"[parallel] gloo rank {r}/{DP_RANKS} on {card[r]}: one sharded step of B = "
+            f"{len(batch['flens']) // DP_RANKS} (global {len(batch['flens'])}), {n_segs} x "
+            f"{SEG_LEN}: {t['seconds']:.3f} s, K2 {n['K2']}, K3 {n['K3']} (want {want_seg} "
+            f"each); vs single device: per-segment loss rel {rel:.3e} (< {DP_LOSS_REL}), first "
+            f"all-reduced gradients max err / scale {gap:.3e} (<= {GRAD_SCALE_TOL}); "
+            f"{DP_TIMED_STEPS} more steps, median s/step {t['median_seconds']:.4f} "
+            f"{'ok' if good else 'FAIL'}")
+        h = res["hmc"]
+        s_mine = h["samples"]
+        s_want = s_ref[r * c_local:(r + 1) * c_local].cpu()
+        moved = lambda s_: (torch.diff(torch.cat([torch.zeros_like(s_[:, :1]), s_], dim=1),
+                                       dim=1).abs().amax(dim=(2, 3)) > 0)
+        z_rel = rel_l2(s_mine, s_want)
+        good = (bool(torch.equal(moved(s_mine), moved(s_want))) and z_rel < DP_Z_REL
+                and h["launches"] == want_hmc)
+        ok &= good
+        log(f"[parallel] gloo rank {r}: sharded HMC, {c_local} of {DP_CHAINS} chains, {steps} "
+            f"steps of L = {DP_HMC[1]} on {DP_T} frames: {h['seconds']:.3f} s, K2 "
+            f"{h['launches']['K2']}, K3 {h['launches']['K3']} (want {want_hmc['K2']}, "
+            f"{want_hmc['K3']}); accepts {moved(s_mine).int().tolist()} vs "
+            f"{moved(s_want).int().tolist()}, z rel_l2 {z_rel:.3e} (< {DP_Z_REL}) "
+            f"{'ok' if good else 'FAIL'}")
+        sm = res["smc"]
+        lm_rel = abs(sm["log_marginal"] - lm_ref) / abs(lm_ref)
+        good = lm_rel < DP_LM_REL and sm["launches"] == {"K1": 0, "K2": 0, "K3": 0}
+        ok &= good
+        log(f"[parallel] gloo rank {r}: sharded SMC, {DP_PARTICLES // DP_RANKS} of "
+            f"{DP_PARTICLES} particles over {DP_T} frames: {sm['seconds']:.3f} s, log marginal "
+            f"{sm['log_marginal']:.4f} vs {lm_ref:.4f} (rel {lm_rel:.3e} < {DP_LM_REL}), mean "
+            f"ESS {sm['mean_ess']:.1f} {'ok' if good else 'FAIL'}")
+        for k in launches:
+            launches[k] += t["launches_all"][k] + h["launches"][k]
+    t = nccl["train"][0]
+    equal = bool(torch.equal(t["metrics"]["loss"], single_loss)) and all(
+        torch.equal(a, b) for a, b in zip(t["grads"], grads))
+    rel = float(((t["metrics"]["loss"] - single_loss).abs() / single_loss.abs()).max())
+    n = t["launches"]
+    good = equal and n["K2"] == n["K3"] == want_seg
+    ok &= good
+    for k in launches:
+        launches[k] += t["launches_all"][k]
+    log(f"[parallel] NCCL rank 0/1 on {card[0]}: one sharded step of B = "
+        f"{len(batch['flens'])}: {t['seconds']:.3f} s, K2 {n['K2']}, K3 {n['K3']}; losses and "
+        f"first gradients equal to the single-device step's: {equal} (loss rel {rel:.3e}) "
+        f"{'ok' if good else 'FAIL'}")
+    med = gloo[0]["train"][0]["median_seconds"]
+    log(f"[parallel] median s/step over {DP_TIMED_STEPS} steps (measure_steps, CUDA events): "
+        f"sharded 2 gloo ranks on one card {med:.4f} ({real_frames / med:.0f} real frames/s, "
+        f"per rank {' '.join(f'{r_['train'][0]['median_seconds']:.4f}' for r_ in gloo)}), "
+        f"single device {single['median_seconds']:.4f} ({real_frames / single['median_seconds']:.0f}"
+        f" real frames/s); single-device HMC {hmc_single_s:.3f} s, SMC {smc_single_s:.3f} s; "
+        f"spawn + work: gloo x{DP_RANKS} {gloo_s:.1f} s, NCCL x1 {nccl_s:.1f} s; one "
+        f"segment's gradient all-reduce alone ({gloo[0]['train'][0]['all_reduce_bytes'] / 1e6:.1f}"
+        f" MB, gloo through host copies): "
+        + ", ".join(f"{r_['train'][0]['all_reduce_seconds'] * 1e3:.1f}" for r_ in gloo)
+        + " ms per rank")
+    log(f"[parallel] launches in the ranks: K2 {launches['K2']}, K3 {launches['K3']}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; NCCL across cards not measured (one card)")
+    log(f"[parallel] {'ok' if ok else 'FAIL'}")
+    return ok, launches
+
+
 def _read_wav_samples(path: str) -> np.ndarray:
     from scipy.io import wavfile
     return wavfile.read(path)[1].astype(np.float64)
@@ -2013,12 +2213,13 @@ def main() -> int:
         recipe_ok, recipe_launches = phase_recipe(dev, tmp)
         infer_ok, _ = phase_infer(dev)
         variants_ok, variant_launches, _ = phase_variants(dev, tmp)
+    parallel_ok, parallel_launches = phase_parallel(dev)
     launches += wav_launches + recipe_launches["K1"] + variant_launches["K1"]
-    k2_launches += recipe_launches["K2"] + variant_launches["K2"]
-    k3_launches += recipe_launches["K3"] + variant_launches["K3"]
+    k2_launches += recipe_launches["K2"] + variant_launches["K2"] + parallel_launches["K2"]
+    k3_launches += recipe_launches["K3"] + variant_launches["K3"] + parallel_launches["K3"]
     k4_launches += recipe_launches["K4"]
     ok = (main_ok and train_ok and vocode_ok and wav_ok and recipe_ok and infer_ok and variants_ok
-          and voc_kern_ok and all(r["ok"] for r in kern.values())
+          and parallel_ok and voc_kern_ok and all(r["ok"] for r in kern.values())
           and all(r["ok"] for r in train_kern.values()))
 
     def entry(name, source, replaces, n, r):

@@ -4,9 +4,11 @@ PyTorch counterpart of ``cyclevae_tpu/infer/hmc.py``.  Chains are a batch
 axis: ``hmc_sample_batch`` hands all chains to one batched log-joint (the
 decoder's batch axis, one K2 / K3 launch for every chain), and
 ``hmc_sample`` / ``hmc_sample_chains`` run one chain, or chains of a
-single-chain log-joint, through the same loop.  Everything per step stays on
-the device: the accept test is a per-chain ``torch.where``, the adaptation
-statistics are tensors, so a step never waits for the host.
+single-chain log-joint, through the same loop; ``hmc_sample_sharded``
+runs the chains over a ``parallel.Mesh`` of processes.  Everything per step
+stays on the device: the accept test is a per-chain ``torch.where``, the
+adaptation statistics are tensors, so a step never waits for the host (but,
+sharded, for the gather of the adaptation statistics).
 
 A step with ``n_leapfrog`` = L makes JAX's count of evaluations: 2L
 gradients (each a forward and a backward) and 2 energies (forwards).
@@ -44,12 +46,14 @@ def _leapfrog(grad_fn, z, p, step_size, n_steps, inv_mass):
 
 
 def _run(draws: Draws, logjoint_batch: Callable[[torch.Tensor], torch.Tensor],
-         z0: torch.Tensor, cfg: HMCConfig, windowed: bool, shared: bool = True
-         ) -> Tuple[torch.Tensor, Dict]:
+         z0: torch.Tensor, cfg: HMCConfig, windowed: bool, shared: bool = True,
+         mesh=None) -> Tuple[torch.Tensor, Dict]:
     """HMC over chains z0 (C, ...) of a batched log-joint (C, ...) -> (C,).
 
     ``shared``: one step size and one inverse mass for all chains (the
-    statistics averaged over chains), else one per chain.  ``windowed``:
+    statistics averaged over chains, and with a ``mesh`` over every rank's
+    chains, gathered once per adaptation step), else one per chain.
+    ``windowed``:
     the batched sampler's two-phase warmup (the step size re-adapted under
     the new metric), else the single-chain sampler's one phase.  Returns
     (samples (n_samples, C, ...), per-step accept probabilities of the
@@ -65,10 +69,18 @@ def _run(draws: Draws, logjoint_batch: Callable[[torch.Tensor], torch.Tensor],
             return logjoint_batch(z)
 
     def kinetic(p, inv_mass):
-        return 0.5 * torch.sum(inv_mass * p ** 2, dim=axes)
+        # one sum per chain: on the card a sum over (C, ...) along the chain
+        # dims adds in an order that depends on C, so a rank's C / size
+        # chains (hmc_sample_sharded) would part from the single process's
+        e = 0.5 * inv_mass * p ** 2
+        return torch.stack([torch.sum(e[c]) for c in range(C)])
 
     def per_chain(x):       # a step size of shape () or (C,) over the chain dims
         return x.reshape(bshape) if x.ndim == 1 else x
+
+    def chain_mean(x):      # the mean over the chains (every rank's, gathered:
+        # the single-process mean of the same values, bit for bit)
+        return (x if mesh is None else mesh.all_gather(x)).mean(dim=0)
 
     def one_step(z, step_size, inv_mass):
         p = draws.momentum(z.shape) / torch.sqrt(inv_mass)
@@ -87,11 +99,11 @@ def _run(draws: Draws, logjoint_batch: Callable[[torch.Tensor], torch.Tensor],
         w_sum, w2_sum, accs = torch.zeros_like(z), torch.zeros_like(z), []
         for _ in range(n):
             z, acc = one_step(z, torch.exp(da.log_step), inv_mass)
-            da = da_update(da, acc.mean() if shared else acc, target=cfg.target_accept)
+            da = da_update(da, chain_mean(acc) if shared else acc, target=cfg.target_accept)
             w_sum, w2_sum = w_sum + z, w2_sum + z ** 2
             accs.append(acc)
         var = w2_sum / n - (w_sum / n) ** 2 if n else torch.zeros_like(z)
-        return z, da, (var.mean(dim=0) if shared else var), accs
+        return z, da, (chain_mean(var) if shared else var), accs
 
     init_step = torch.full((C,) if not shared else (), cfg.step_size, device=z0.device)
     inv_mass0 = torch.ones_like(z0[0] if shared else z0)
@@ -154,11 +166,39 @@ def hmc_sample_chains(draws: Draws, logjoint: Callable[[torch.Tensor], torch.Ten
     together (the JAX package vmaps ``hmc_sample``); the log-joint runs once
     per chain.  With ``shared_adaptation`` the dual-averaging and mass
     statistics are averaged over all chains, so they share one schedule.
-    Returns (samples (n_samples, C, *shape), info with one value per chain)."""
-    C = z0_chains.shape[0]
+    Returns (samples (C, n_samples, *shape), the chains first as the vmap
+    lays them out, and info with one value per chain)."""
+    return _chains(draws, logjoint, z0_chains, cfg, shared_adaptation, None)
+
+
+def _chains(draws, logjoint, z0, cfg, shared, mesh):
+    C = z0.shape[0]
     samples, warm, acc, step, inv_mass = _run(
-        draws, lambda z: torch.stack([logjoint(z[c]) for c in range(C)]), z0_chains, cfg,
-        windowed=False, shared=shared_adaptation)
-    return samples, {"accept_prob": acc.mean(dim=0), "warmup_accept_prob": warm.mean(dim=0),
-                     "step_size": step.expand(C),
-                     "inv_mass": inv_mass.expand_as(z0_chains)}
+        draws, lambda z: torch.stack([logjoint(z[c]) for c in range(C)]), z0, cfg,
+        windowed=False, shared=shared, mesh=mesh)
+    return samples.transpose(0, 1), {
+        "accept_prob": acc.mean(dim=0), "warmup_accept_prob": warm.mean(dim=0),
+        "step_size": step.expand(C), "inv_mass": inv_mass.expand_as(z0)}
+
+
+def hmc_sample_sharded(mesh, draws: Draws, logjoint: Callable[[torch.Tensor], torch.Tensor],
+                       z0_chains: torch.Tensor, cfg: HMCConfig = HMCConfig()
+                       ) -> Tuple[torch.Tensor, dict]:
+    """``hmc_sample_chains`` with the chains sharded over a
+    ``parallel.Mesh``: ``z0_chains`` (C, *shape) is the global start (the
+    same on every rank), this rank runs its C / size chains, and the draws
+    are the global ones' rows (``parallel.draws.ShardedDraws``), so the
+    chains are the single-process sampler's.  The dual-averaging accept
+    mean and the pooled within-chain variance are taken over every chain of
+    every rank (all-gathered, then averaged as the single process averages
+    them, so the schedule is the single-process one bit for bit): one
+    adapted schedule for the fleet.  Returns (this rank's samples (C / size,
+    n_samples, *shape), info averaged over the ranks, as the JAX package's
+    ``pmean`` over ``dp``)."""
+    from ..parallel.draws import ShardedDraws
+    from ..parallel.mesh import shard_rows
+
+    z0 = shard_rows(mesh, z0_chains)
+    samples, info = _chains(ShardedDraws(draws, mesh.rank, mesh.size, z0.shape[0]), logjoint,
+                            z0, cfg, True, mesh)
+    return samples, {k: mesh.all_reduce(v) / mesh.size for k, v in info.items()}

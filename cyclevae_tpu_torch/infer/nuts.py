@@ -15,7 +15,8 @@ as ``infer/nuts_batch.py`` of the JAX package does: a chain whose
 trajectory ended freezes while the others go on.  A single chain is the
 case C = 1, and chains of a single-chain log-joint (``nuts_sample_chains``)
 evaluate it once per chain; either way each chain's tree is the one it
-would build alone.  The loops end on data (U-turns, divergences), so each
+would build alone.  ``nuts_sample_sharded`` runs the chains over a
+``parallel.Mesh`` of processes.  The loops end on data (U-turns, divergences), so each
 leaf reads one flag back to the host.
 """
 
@@ -57,11 +58,16 @@ def _uturn(z_plus, p_plus, z_minus, p_minus) -> torch.Tensor:
 
 
 def _transition(draws: Draws, value_and_grad_batch, z: torch.Tensor,
-                step_size: torch.Tensor, inv_mass: torch.Tensor, cfg: NUTSConfig
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                step_size: torch.Tensor, inv_mass: torch.Tensor, cfg: NUTSConfig,
+                mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One NUTS transition of chains z (C, ...): ``value_and_grad_batch(z)
     -> (log-joint (C,), gradient (C, ...))``; ``step_size`` of shape () or
-    (C,).  Returns (z_new, stats per chain)."""
+    (C,).  With a ``mesh`` the two loop conditions (every chain done, some
+    chain live) are taken over every rank's chains, one small all-reduce
+    each, so all ranks make the same count of draws.  Returns (z_new, stats
+    per chain)."""
+    every = (lambda t: bool(t.all())) if mesh is None else mesh.all
+    some = (lambda t: bool(t.any())) if mesh is None else mesh.any
     C = z.shape[0]
     max_depth = cfg.max_depth
     bshape = (C,) + (1,) * (z.ndim - 1)
@@ -96,7 +102,7 @@ def _transition(draws: Draws, value_and_grad_batch, z: torch.Tensor,
     z_prop, log_w_total = z, zeros
     done, diverged, sum_alpha, n_alpha, depths = false, false, zeros, zeros, zeros
     depth = 0
-    while depth < max_depth and not bool(done.all()):
+    while depth < max_depth and not every(done):
         active = ~done
         direction = torch.where(draws.direction((C,)), 1.0, -1.0).to(z.dtype)
         fwd = direction > 0
@@ -110,7 +116,7 @@ def _transition(draws: Draws, value_and_grad_batch, z: torch.Tensor,
         j = 0
         while j < (1 << depth):
             live = active & ~(turning | s_div)
-            if not bool(live.any()):
+            if not some(live):
                 break
             z_new, p_new, g_new, logp_new = leapfrog(sz, sp, sg, direction)
             # frozen chains keep their old state
@@ -185,25 +191,31 @@ def nuts_kernel(draws: Draws, logjoint: Callable[[torch.Tensor], torch.Tensor],
 
 
 def _sample(draws: Draws, value_and_grad_batch, z0: torch.Tensor, cfg: NUTSConfig,
-            windowed: bool, shared: bool = True):
+            windowed: bool, shared: bool = True, mesh=None):
     """NUTS over chains z0 (C, ...) with dual-averaging step size + diagonal
-    mass warmup (``windowed``: the batched sampler's two phases).  Returns
+    mass warmup (``windowed``: the batched sampler's two phases); with a
+    ``mesh`` the shared statistics and the loop conditions span every
+    rank's chains.  Returns
     (samples (n_samples, C, ...), warmup accept stats (n_warmup, C), stats
     of the samples (dict of (n_samples, C)), step size, inverse mass)."""
     C = z0.shape[0]
+
+    def chain_mean(x):      # the mean over the chains (every rank's, gathered:
+        # the single-process mean of the same values, bit for bit)
+        return (x if mesh is None else mesh.all_gather(x)).mean(dim=0)
 
     def warmup(z, step_size, inv_mass, n):
         da = da_init(step_size, device=z.device)
         w_sum, w2_sum, accs = torch.zeros_like(z), torch.zeros_like(z), []
         for _ in range(n):
             z, stats = _transition(draws, value_and_grad_batch, z, torch.exp(da.log_step),
-                                   inv_mass, cfg)
+                                   inv_mass, cfg, mesh)
             acc = stats["accept_stat"]
-            da = da_update(da, acc.mean() if shared else acc, target=cfg.target_accept)
+            da = da_update(da, chain_mean(acc) if shared else acc, target=cfg.target_accept)
             w_sum, w2_sum = w_sum + z, w2_sum + z ** 2
             accs.append(acc)
         var = w2_sum / n - (w_sum / n) ** 2 if n else torch.zeros_like(z)
-        return z, da, (var.mean(dim=0) if shared else var), accs
+        return z, da, (chain_mean(var) if shared else var), accs
 
     init_step = torch.full((C,) if not shared else (), cfg.step_size, device=z0.device)
     inv_mass0 = torch.ones_like(z0[0] if shared else z0)
@@ -223,7 +235,7 @@ def _sample(draws: Draws, value_and_grad_batch, z0: torch.Tensor, cfg: NUTSConfi
 
     samples, stats = [], []
     for _ in range(cfg.n_samples):
-        z, st = _transition(draws, value_and_grad_batch, z, step_size, inv_mass, cfg)
+        z, st = _transition(draws, value_and_grad_batch, z, step_size, inv_mass, cfg, mesh)
         samples.append(z)
         stats.append(st)
     stack = lambda xs: torch.stack(xs) if xs else torch.zeros((0, C), device=z0.device)
@@ -263,11 +275,34 @@ def nuts_sample_chains(draws: Draws, logjoint: Callable[[torch.Tensor], torch.Te
                        shared_adaptation: bool = True) -> Tuple[torch.Tensor, dict]:
     """Chains of a single-chain log-joint (the JAX package vmaps
     ``nuts_sample``), each its own tree, the log-joint run once per chain.
-    Returns (samples (n_samples, C, ...), info with one value per chain)."""
-    C = z0_chains.shape[0]
+    Returns (samples (C, n_samples, ...), the chains first as the vmap lays
+    them out, and info with one value per chain)."""
+    return _chains(draws, logjoint, z0_chains, cfg, shared_adaptation, None)
+
+
+def _chains(draws, logjoint, z0, cfg, shared, mesh):
+    C = z0.shape[0]
     vg = lambda zb: value_and_grad(
         lambda x: torch.stack([logjoint(x[c]) for c in range(C)]), zb)
-    samples, warm, per, step, inv_mass = _sample(draws, vg, z0_chains, cfg, windowed=False,
-                                                 shared=shared_adaptation)
-    info = _info(warm, per, step.expand(C), inv_mass.expand_as(z0_chains), dim=0)
-    return samples, info
+    samples, warm, per, step, inv_mass = _sample(draws, vg, z0, cfg, windowed=False,
+                                                 shared=shared, mesh=mesh)
+    return samples.transpose(0, 1), _info(warm, per, step.expand(C), inv_mass.expand_as(z0),
+                                          dim=0)
+
+
+def nuts_sample_sharded(mesh, draws: Draws, logjoint: Callable[[torch.Tensor], torch.Tensor],
+                        z0_chains: torch.Tensor, cfg: NUTSConfig = NUTSConfig()
+                        ) -> Tuple[torch.Tensor, dict]:
+    """``nuts_sample_chains`` with the chains sharded over a
+    ``parallel.Mesh``, with ``infer.hmc.hmc_sample_sharded``'s scheme: the
+    global start ``z0_chains``, this rank's chains on the global draws'
+    rows, the adaptation statistics and both loop conditions over every
+    rank's chains.  Returns (this rank's samples (C / size, n_samples,
+    ...), info averaged over the ranks)."""
+    from ..parallel.draws import ShardedDraws
+    from ..parallel.mesh import shard_rows
+
+    z0 = shard_rows(mesh, z0_chains)
+    samples, info = _chains(ShardedDraws(draws, mesh.rank, mesh.size, z0.shape[0]), logjoint,
+                            z0, cfg, True, mesh)
+    return samples, {k: mesh.all_reduce(v) / mesh.size for k, v in info.items()}

@@ -1,8 +1,8 @@
 """Sequential Monte Carlo over frame-sequence latents (bootstrap filter).
 
-PyTorch counterpart of ``cyclevae_tpu/infer/smc.py`` (single device; the
-sharded filter is not ported yet).  The frame-sequence latent z_{1:T} of the
-CycleVAE decoder is a state-space model: prior z_t ~ N(0, I), observation
+PyTorch counterpart of ``cyclevae_tpu/infer/smc.py``: ``smc_filter`` on one
+device, ``smc_filter_sharded`` over a ``parallel.Mesh`` of processes.  The
+frame-sequence latent z_{1:T} of the CycleVAE decoder is a state-space model: prior z_t ~ N(0, I), observation
 x_t ~ Laplace(dec(z)_t, b) with an autoregressive decoder, so each particle
 carries the decoder's recurrent state (GRU hidden h, AR feedback y).  The
 particles are a batch axis: ``init``, ``propagate`` and ``log_weight`` act
@@ -10,9 +10,10 @@ on all of them at once, and the filter is a loop over time.  No kernel is on
 this path: the decoder SSM steps one frame at a time with batched products
 over the particles (the JAX package's ``_gru_cell`` under ``vmap``).
 
-Resampling is decided on the device: every step draws its uniform and
-gathers the particles through either the systematic ancestors or the
-identity, so a step never waits for the host.
+On one device resampling is decided on the device: every step draws its
+uniform and gathers the particles through either the systematic ancestors
+or the identity, so a step never waits for the host.  Both filters run one
+loop (``_filter``).
 
 Generic: ``smc_filter`` takes (init, propagate, log_weight) callables, so the
 same engine runs the decoder SSM and test targets (linear-Gaussian vs Kalman).
@@ -80,35 +81,106 @@ def smc_filter(
     Returns (final particle states, info with log_marginal (SMC estimate of
     log p(x_{1:T})), ess (T,), resampled (T,), log_w (n,)).
     """
+    return _filter(None, draws, T, init, propagate, log_weight, cfg, store)
+
+
+def smc_filter_sharded(
+    mesh,
+    draws: Draws,
+    T: int,
+    init: Callable[[int], Any],
+    propagate: Callable[[Draws, Any, int], Any],
+    log_weight: Callable[[Any, int], torch.Tensor],
+    cfg: SMCConfig = SMCConfig(),
+    store: Optional[Callable[[Any], Any]] = None,
+) -> Tuple[Any, dict]:
+    """``smc_filter`` with the particles sharded over a ``parallel.Mesh``:
+    this rank holds particles [rank*n/size, (rank+1)*n/size) and draws its
+    rows of the global draws (``parallel.draws.ShardedDraws``), so the
+    particles are the single-process filter's.
+
+    Per step the log-normaliser is a ``max`` all-reduce followed by a
+    ``sum`` all-reduce, the ESS a ``sum`` all-reduce, and the resampling
+    decision follows from them on every rank alike.  Resampling all-gathers
+    the weights and the particle states; every rank draws the one shared
+    uniform, makes the global systematic ancestors and keeps its slice.  A
+    step that does not resample draws its uniform all the same, as the
+    single-process filter does.
+
+    Returns (this rank's final particle states, info with log_marginal, ess
+    (T,), resampled (T,) and the global log_w (n,); with ``store`` also the
+    global ``stored`` (T, n, ...) and ``ancestors`` (T, n) in global
+    indices, all-gathered at the end, so ``trace_ancestry`` and
+    ``smc_smoothed_trajectories`` apply unchanged on every rank).
+    """
+    return _filter(mesh, draws, T, init, propagate, log_weight, cfg, store)
+
+
+def _filter(mesh, draws, T, init, propagate, log_weight, cfg, store):
+    """The filter's loop, on one device (``mesh`` None) or over a mesh.
+
+    One device decides each step's resampling on the device (the ancestors
+    are either the systematic ones or the identity, through
+    ``torch.where``), so a step never waits for the host.  Over a mesh the
+    decision is read on the host, so the gathers of the weights and states
+    run only on a step that resamples; the uniform is drawn either way."""
     n = cfg.n_particles
-    states = init(n)
+    if mesh is None:
+        nl, lo = n, 0
+        log_normaliser = lambda lw: torch.logsumexp(lw, dim=0)
+        total = torch.sum
+        gather = lambda x, axis=0: x
+    else:
+        from ..parallel.draws import ShardedDraws
+
+        if n % mesh.size:
+            raise ValueError(f"{n} particles do not shard over {mesh.size} processes")
+        nl = n // mesh.size
+        lo = mesh.rank * nl
+        draws = ShardedDraws(draws, mesh.rank, mesh.size, nl)
+        total = lambda x: mesh.all_reduce(torch.sum(x))
+        gather = mesh.all_gather
+
+        def log_normaliser(lw):
+            gmax = mesh.all_reduce(torch.max(lw), "max")
+            return gmax + torch.log(total(torch.exp(lw - gmax)))
+
+    states = init(nl)
     log_w = None
-    ident = None
     ess_t, res_t, stored_t, anc_t = [], [], [], []
     for t in range(T):
         states = propagate(draws, states, t)
         log_inc = log_weight(states, t)
         if log_w is None:
             log_w = torch.full_like(log_inc, -math.log(n))
-            ident = torch.arange(n, device=log_inc.device)
+            ident = torch.arange(lo, lo + nl, device=log_inc.device)
         log_w = log_w + log_inc
         if store is not None:
             stored_t.append(store(states))
         # marginal-likelihood increment + ESS
-        log_sum = torch.logsumexp(log_w, dim=0)
-        ess = 1.0 / torch.sum(torch.exp(log_w - log_sum) ** 2)
+        log_sum = log_normaliser(log_w)
+        ess = 1.0 / total(torch.exp(log_w - log_sum) ** 2)
         resampled = ess < cfg.ess_threshold * n
-        anc = torch.where(resampled, systematic_resample_indices(draws, log_w), ident)
-        states = tree_map(lambda x: x[anc], states)
         # after resampling: uniform weights carrying the average weight
-        log_w = torch.where(resampled, (log_sum - math.log(n)).expand(n), log_w)
+        if mesh is None:
+            anc = torch.where(resampled, systematic_resample_indices(draws, log_w), ident)
+            states = tree_map(lambda x: x[anc], states)
+            log_w = torch.where(resampled, (log_sum - math.log(n)).expand(n), log_w)
+        elif bool(resampled):
+            anc = systematic_resample_indices(draws, gather(log_w))[lo:lo + nl]
+            states = tree_map(lambda x: gather(x)[anc], states)
+            log_w = (log_sum - math.log(n)).expand(nl)
+        else:
+            draws.uniform(())
+            anc = ident
         ess_t.append(ess)
         res_t.append(resampled)
         anc_t.append(anc)
-    info = {"log_marginal": torch.logsumexp(log_w, dim=0), "ess": torch.stack(ess_t),
-            "resampled": torch.stack(res_t), "log_w": log_w}
+    info = {"log_marginal": log_normaliser(log_w), "ess": torch.stack(ess_t),
+            "resampled": torch.stack(res_t), "log_w": gather(log_w)}
     if store is not None:
-        info["stored"], info["ancestors"] = _stack(stored_t), torch.stack(anc_t)
+        info["stored"] = tree_map(lambda x: gather(x, axis=1), _stack(stored_t))
+        info["ancestors"] = gather(torch.stack(anc_t), axis=1)
     return states, info
 
 

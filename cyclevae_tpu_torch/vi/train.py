@@ -20,7 +20,7 @@ Random numbers come from ``models.gru_vae.Draws`` in the JAX package's order.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -325,41 +325,70 @@ def make_train_step(cfg: CycleVAEConfig, optimizer: Optimizer, seg_len: int, n_s
     state unchanged, metrics 0, as the JAX package's gated update leaves them.
     ``draws`` defaults to ``Draws(ts.rng)``.
     """
-    T = n_segs * seg_len
 
     def step_fn(ts: TrainState, batch: Dict, draws: Optional[Draws] = None
                 ) -> Tuple[TrainState, Dict]:
-        draws = Draws(ts.rng) if draws is None else draws
-        dev = ts.params.decoder["out"]["w"].device
-        as_t = lambda a: torch.as_tensor(a, dtype=torch.float32).to(dev)
-        flens = np.asarray(batch["flens"].cpu() if torch.is_tensor(batch["flens"])
-                           else batch["flens"])
-        data = {k: as_t(batch[k])[..., :T, :]
-                for k in ("feats", "src_code", "trg_code", "cv_excit")}
-        mask = as_t(np.arange(T)[None, :] < flens[:, None])        # (B, T)
+        flens = _host_flens(batch)
         seg_valid = [bool(np.any(flens > s * seg_len)) for s in range(n_segs)]
-        state = init_cycle_state(cfg, ts.params, data["feats"].shape[0])
-        per_seg = []
-        for s in range(n_segs):
-            if not seg_valid[s]:
-                per_seg.append(None)
-                continue
-            win = slice(s * seg_len, (s + 1) * seg_len)
-            seg = {k: v[..., win, :] for k, v in data.items()}
-            seg["mask"] = mask[:, win]
-            state = {k: v.detach() for k, v in state.items()}   # TBPTT
-            ts.opt_state.zero_grad(set_to_none=True)
-            loss, (state, metrics) = segment_loss(ts.params, cfg, draws, seg, state, do=True)
-            loss.backward()
-            ts.opt_state.step()
-            per_seg.append({k: v.detach() for k, v in metrics.items()})
-        zero = torch.zeros((), device=dev)
-        out = {k: torch.stack([m[k] if m is not None else zero for m in per_seg])
-               for k in metric_names(cfg)}
-        out["seg_valid"] = torch.tensor(seg_valid, dtype=torch.float32, device=dev)
-        return TrainState(ts.params, ts.opt_state, ts.rng, ts.step + 1), out
+        per_seg = run_segments(cfg, seg_len, n_segs, ts, batch,
+                               Draws(ts.rng) if draws is None else draws, seg_valid)
+        return TrainState(ts.params, ts.opt_state, ts.rng, ts.step + 1), \
+            stack_metrics(cfg, per_seg, seg_valid, ts.params.decoder["out"]["w"].device)
 
     return step_fn
+
+
+def _host_flens(batch: Dict) -> np.ndarray:
+    f = batch["flens"]
+    return np.asarray(f.cpu() if torch.is_tensor(f) else f)
+
+
+def run_segments(cfg: CycleVAEConfig, seg_len: int, n_segs: int, ts: TrainState,
+                 batch: Dict, draws: Draws, seg_valid: List[bool],
+                 reduce_grads: Optional[Callable[[List[torch.Tensor]], None]] = None
+                 ) -> List[Optional[Dict]]:
+    """The segments of one train step: for each segment flagged in
+    ``seg_valid`` a forward, a backward and an update of ``ts`` in place;
+    ``reduce_grads(leaves)`` (the data-parallel step's all-reduce) runs
+    between each backward and its update.  Returns each segment's metrics
+    (None where the segment was skipped)."""
+    T = n_segs * seg_len
+    dev = ts.params.decoder["out"]["w"].device
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32).to(dev)
+    flens = _host_flens(batch)
+    data = {k: as_t(batch[k])[..., :T, :]
+            for k in ("feats", "src_code", "trg_code", "cv_excit")}
+    mask = as_t(np.arange(T)[None, :] < flens[:, None])        # (B, T)
+    leaves = [p for group in ts.opt_state.param_groups for p in group["params"]]
+    state = init_cycle_state(cfg, ts.params, data["feats"].shape[0])
+    per_seg = []
+    for s in range(n_segs):
+        if not seg_valid[s]:
+            per_seg.append(None)
+            continue
+        win = slice(s * seg_len, (s + 1) * seg_len)
+        seg = {k: v[..., win, :] for k, v in data.items()}
+        seg["mask"] = mask[:, win]
+        state = {k: v.detach() for k, v in state.items()}   # TBPTT
+        ts.opt_state.zero_grad(set_to_none=True)
+        loss, (state, metrics) = segment_loss(ts.params, cfg, draws, seg, state, do=True)
+        loss.backward()
+        if reduce_grads is not None:
+            reduce_grads(leaves)
+        ts.opt_state.step()
+        per_seg.append({k: v.detach() for k, v in metrics.items()})
+    return per_seg
+
+
+def stack_metrics(cfg: CycleVAEConfig, per_seg: List[Optional[Dict]], seg_valid: List[bool],
+                  dev) -> Dict[str, torch.Tensor]:
+    """Per-segment metrics as (n_segs,) tensors, 0 where a segment was
+    skipped, and ``seg_valid``."""
+    zero = torch.zeros((), device=dev)
+    out = {k: torch.stack([m[k] if m is not None else zero for m in per_seg])
+           for k in metric_names(cfg)}
+    out["seg_valid"] = torch.tensor(seg_valid, dtype=torch.float32, device=dev)
+    return out
 
 
 def make_eval_forward(cfg: CycleVAEConfig):

@@ -157,8 +157,11 @@ def test_package_imports_without_jax():
     nothing on import), stages i and v's (the samplers, the inference
     stage, the vocoder's dataset and trainer), and the model variants' (the
     many-to-many recipe, its trainer and decode, the classifier and VQ
-    trainers, the VQ helpers, the GMM) among them; one HMC step, one vocoder
-    train step, one classifier step, one VQ step and one EM step run there."""
+    trainers, the VQ helpers, the GMM) and the data-parallel layer's (the
+    mesh, the draws, spawn, the launcher, the smoke worker, the dry run, the
+    profiling helpers) among them; one HMC step, one sharded HMC step on a
+    one-process mesh, one vocoder train step, one classifier step, one VQ
+    step and one EM step run there."""
     code = (
         "import sys, importlib, pkgutil\n"
         "for m in ('jax', 'jaxlib', 'optax', 'cyclevae_tpu', 'h5py'):\n"
@@ -178,7 +181,9 @@ def test_package_imports_without_jax():
         "          'infer.nuts', 'infer.nuts_batch', 'infer.smc', 'pipeline.infer_stage',\n"
         "          'pipeline.dataset_mult', 'pipeline.train_stage_mult', 'pipeline.decode_mult',\n"
         "          'pipeline.recipe_mult', 'pipeline.train_stage_cls', 'pipeline.train_stage_vq',\n"
-        "          'models.vq', 'models.gmm'):\n"
+        "          'models.vq', 'models.gmm', 'parallel', 'parallel.mesh', 'parallel.draws',\n"
+        "          'parallel.spawn', 'parallel.launch', 'parallel.smoke_worker',\n"
+        "          'parallel.dryrun', 'utils.profiling'):\n"
         "    assert 'cyclevae_tpu_torch.' + m in sys.modules, m\n"
         "import numpy as np\n"
         "from cyclevae_tpu_torch.dsp import sptk\n"
@@ -199,6 +204,12 @@ def test_package_imports_without_jax():
         "s, info = hmc_sample_batch(Draws(torch.Generator().manual_seed(1)), lj,\n"
         "                           torch.zeros(2, 6, 4), HMCConfig(0.05, 2, 0, 1))\n"
         "assert s.shape == (1, 2, 6, 4) and torch.isfinite(s).all()\n"
+        "from cyclevae_tpu_torch.infer import hmc_sample_sharded\n"
+        "from cyclevae_tpu_torch.parallel import make_mesh\n"
+        "s, _ = hmc_sample_sharded(make_mesh(device='cpu'), Draws(torch.Generator()),\n"
+        "                          lambda z: lj(z[None])[0], torch.zeros(2, 6, 4),\n"
+        "                          HMCConfig(0.05, 2, 0, 1))\n"
+        "assert s.shape == (2, 1, 6, 4) and torch.isfinite(s).all()\n"
         "from cyclevae_tpu_torch.models.gru_vae import init_gru_rnn\n"
         "from cyclevae_tpu_torch.models.wavernn import WaveRNNConfig\n"
         "from cyclevae_tpu_torch.pipeline.vocoder_stage import run_train_vocoder\n"

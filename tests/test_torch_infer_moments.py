@@ -49,7 +49,7 @@ def test_hmc_chains():
     cfg = HMCConfig(step_size=0.2, n_leapfrog=8, n_warmup=200, n_samples=500)
     s, info = hmc.hmc_sample_chains(JaxChainsDraws(jax.random.PRNGKey(1), 4, 700), lj,
                                     torch.zeros((4, 4)), cfg)
-    assert s.shape == (500, 4, 4)
+    assert s.shape == (4, 500, 4)
     np.testing.assert_allclose(s.reshape(-1, 4).mean(0).numpy(), MEAN.numpy(), atol=0.15)
     # shared adaptation -> identical step size across chains
     ss = info["step_size"].numpy()

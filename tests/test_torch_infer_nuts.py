@@ -126,7 +126,7 @@ def test_nuts_chains_shared_adaptation():
     s, info = nuts.nuts_sample_chains(Draws(torch.Generator().manual_seed(9)),
                                       logjoint.make_gaussian_logjoint(MEAN, COV),
                                       torch.zeros((4, 4)), cfg)
-    assert s.shape == (200, 4, 4) and info["step_size"].shape == (4,)
+    assert s.shape == (4, 200, 4) and info["step_size"].shape == (4,)
     np.testing.assert_allclose(info["step_size"].numpy(), float(info["step_size"][0]))
     np.testing.assert_allclose(s.reshape(-1, 4).mean(0).numpy(), MEAN.numpy(), atol=0.2)
 
