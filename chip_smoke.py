@@ -14,7 +14,10 @@ Phases, one line or more each; any failure exits non-zero:
               T=1120: encoder B=2 out=64, decoder B=3 out=50); K2 and K3 at the
               training step's four calls (T=80: encoder B=5 out=64, fused 2B
               decoder B=10 out=50, cv encoder B=5 out=64, cyclic decoder B=5
-              out=50), and K3 also at T=560, each K1, K2 and K3 row with its
+              out=50), and K3 also at T=560; past one launch's rows (row
+              blocks, ``ops.cuda_gru.max_batch``): K2 and K3 at a bsu-64
+              step's fused 2B decoder (B=128, T=80) and K1 at B=64, T=256,
+              each with its launches per call; each K1, K2 and K3 row with its
               plan (K1, K2: grid, units per block, y values each block sums,
               lanes per (row, unit) in the gate phase, shared bytes; K3: grid,
               units, dh partials per pass, shared bytes, cluster size 1);
@@ -96,6 +99,18 @@ Phases, one line or more each; any failure exits non-zero:
               classifier's out = 3 and the VQ encoder's out = 32 (B = bsu,
               T = 560) and K1 at stage 5m's B = 3 and the classifier's
               eval B = 1, timed beside their bounds;
+ 11. tools    the port's tools (``cyclevae_tpu_torch.tools``, run after phase 9
+              in the same work directory) through their ``main`` at full
+              width and reduced depth: the train-throughput bench (bsu 5
+              and 64, f32 and bf16, the kernel route), the HMC chain sweep
+              (32 and 128 chains), NUTS (32 chains, depth 4), SMC (256
+              particles, 64 frames), the trajectory-length sweep (2
+              points), the scaling curves (1 and 2 gloo ranks on the card),
+              vocode-converted and train-and-eval of the vocoder (1 epoch)
+              on phase 7's speaker, re-eval over phase 7's checkpoints; each
+              tool's K1-K4 launches against the prediction from the
+              kernels' row-block limits (``ops.cuda_gru.max_batch``: a
+              batch past one launch's rows runs in ceil(B / limit) launches);
  10. parallel the data-parallel layer (``cyclevae_tpu_torch.parallel``) on the
               one card: 2 gloo ranks spawned on cuda:0 (NCCL refuses two
               ranks on one card; gloo stages each collective through host
@@ -154,6 +169,11 @@ WARMUP = [(350, 450), (650, 900)]   # both 560-frame bucket counts
 SEG_LEN = 80
 TRAIN_FLENS = [560, 300, 417, 489, 351]
 TRAIN_STEPS = 10                    # timed steps per dtype: measure_steps' median
+# phase 2's row-blocked rows: the fused 2B decoder of a bsu-64 train step
+# (128 rows, T = 80) and K1 at 64 rows over the HMC sweep's T = 256, past one
+# launch's rows at H = 1024 in float32 (K1, K2 46, K3 51) and bf16 (82, 148)
+ROWS_BSU = 64
+K1_ROWS_B, K1_ROWS_T = 64, 256
 # the four AR-GRU calls of a training segment: (name, B, out, conv_dim)
 TRAIN_CALLS = [("encoder", 5, 64, 486), ("decoder2B", 10, 50, 306),
                ("cv_encoder", 5, 64, 486), ("cyc_decoder", 5, 50, 306)]
@@ -270,10 +290,110 @@ DP_HMC = (0.002, 4, 2, 2)               # step size, leapfrogs, warm-up, samples
 DP_Z_REL = 1e-4
 DP_PARTICLES = 256
 DP_LM_REL = 1e-4
+# phase 11, the port's tools (cyclevae_tpu_torch/tools) at full width and
+# reduced depth, in phase 7's work directory: the train-throughput bench at
+# bsu 5 and 64 in f32 and bf16 on the kernel route (1 + 3 steps of 2
+# segments of 80); HMC at 32 and 128 chains (T = 256, L = 8, 2 warm-up + 2
+# samples, both dtypes); NUTS at 32 chains, depth 4; SMC with 256 particles
+# over 64 frames; the trajectory-length sweep at 2 points of 32 chains; the
+# scaling curves at 1 and 2 gloo ranks on the card; the vocoder tools on
+# phase 7's speaker SPKB (vocode-converted with its stage-v vocoder, then
+# train-and-eval for 1 epoch); re-eval over phase 7's 2 checkpoints.  Each
+# tool's launches are held to their prediction from the row-block limits,
+# and any "error" or "fault" row fails the phase
+TOOLS_BENCH_BSU = (5, 64)
+TOOLS_BENCH_STEPS = 3
+TOOLS_HMC_CHAINS = (32, 128)
+TOOLS_ITERS = 2                     # warm-up and sampling iterations each
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+PR_SET_CHILD_SUBREAPER = 36         # linux/prctl.h
+
+
+def adopt_orphans() -> None:
+    """Make this process the subreaper of everything it starts: a process
+    whose parent ends before it is handed to this one, not to init, so
+    that ``stop_leftovers`` finds it."""
+    import ctypes
+    ctypes.CDLL(None, use_errno=True).prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0)
+
+
+def _children() -> dict:
+    """{pid: (state, command line)} of this process's children."""
+    me, found = os.getpid(), {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            if int(fields[1]) != me:
+                continue
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:             # ended while being read
+            continue
+        found[int(d)] = (fields[0], cmd)
+    return found
+
+
+def _reap(pid: int, wait_s: float) -> bool:
+    """Wait up to ``wait_s`` for child ``pid`` to end and collect it."""
+    deadline = time.monotonic() + wait_s
+    while True:
+        try:
+            if os.waitpid(pid, os.WNOHANG)[0] == pid:
+                return True
+        except ChildProcessError:   # already collected
+            return True
+        if time.monotonic() >= deadline:
+            return False
+        time.sleep(0.05)
+
+
+def stop_leftovers() -> list:
+    """Stop every process this one started that is still there, and return
+    the command lines of those that were still running.
+
+    multiprocessing's resource tracker (started by the first ``spawn``-context
+    process: stage 1's feature workers, the spawned ranks) ignores SIGTERM and
+    would otherwise end only after this process, when it reads end of file;
+    it is closed last, once no other child can hold its pipe.  Every other
+    child, orphans handed here by ``adopt_orphans`` included, gets SIGTERM,
+    then SIGKILL after 5 s, and is collected.
+    """
+    from multiprocessing import resource_tracker
+
+    tracker = resource_tracker._resource_tracker
+    stopped = []
+    for _ in range(10):             # a stopped child's orphans come here next
+        others = {p: v for p, v in _children().items() if p != tracker._pid}
+        if not others:
+            break
+        for pid, (state, cmd) in others.items():
+            if state != "Z":
+                stopped.append(cmd)
+                try:
+                    os.kill(pid, 15)
+                except ProcessLookupError:
+                    pass
+        for pid in others:
+            if not _reap(pid, 5.0):
+                try:
+                    os.kill(pid, 9)
+                except ProcessLookupError:
+                    pass
+                _reap(pid, 5.0)
+    if tracker._pid is not None:
+        stopped.append(f"multiprocessing's resource tracker (pid {tracker._pid})")
+    tracker._stop()
+    for cmd in stopped:
+        print(f"chip_smoke: stopped a leftover process: {cmd}", file=sys.stderr, flush=True)
+    return stopped
 
 
 def card_line() -> str:
@@ -382,7 +502,8 @@ def _k1_rows(dev, gen, calls, T, dtypes, tag="kernels"):
     difference, kernel and plain times (CUDA events), the bound and the plan."""
     from cyclevae_tpu_torch.models.layers import init_dense, init_gru_stack
     from cyclevae_tpu_torch.ops import _build
-    from cyclevae_tpu_torch.ops.cuda_gru import PLAN_KEYS, cuda_gru_ar, gru_ar_reference, plan
+    from cyclevae_tpu_torch.ops.cuda_gru import (PLAN_KEYS, cuda_gru_ar, gru_ar_reference,
+                                                 max_batch, plan)
     from cyclevae_tpu_torch.ops.gru_scan import precompute_input_gates
 
     results = {}
@@ -397,7 +518,9 @@ def _k1_rows(dev, gen, calls, T, dtypes, tag="kernels"):
         h0 = torch.zeros((B, H), device=dev)
         for wdt in dtypes:
             args = (layer, proj, gx, y0, h0, wdt)
+            before = cuda_gru_ar.launches
             got = cuda_gru_ar(*args)
+            launches = cuda_gru_ar.launches - before
             want = gru_ar_reference(*args)
             torch.cuda.synchronize()
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
@@ -408,15 +531,20 @@ def _k1_rows(dev, gen, calls, T, dtypes, tag="kernels"):
             ms = cuda_ms(lambda: cuda_gru_ar(*args), iters=10, warmup=2)
             plain_ms = cuda_ms(lambda: gru_ar_reference(*args), iters=2)
             bound_ms, bound_by = gru_ar_bound_ms(B, T, out, wdt)
-            pl = dict(zip(PLAN_KEYS, plan(_build.load("gru_ar"), B, H, out, wdt)))
+            # past one launch's rows: row blocks of at most max_batch rows,
+            # ceil(B / max_batch) launches a call; the first block's plan
+            limit = max_batch("k1", H, out, wdt)
+            ok &= launches == -(-B // limit)
+            pl = dict(zip(PLAN_KEYS, plan(_build.load("gru_ar"), min(B, limit), H, out, wdt)))
             key = f"{call}/{str(wdt).split('.')[-1]}"
             results[key] = dict(B=B, T=T, out=out, max_abs_err=err,
                                 rel_l2=rl2, cosine=cos, ms=ms,
                                 us_per_frame=ms * 1e3 / T, plain_ms=plain_ms,
-                                bound_ms=bound_ms, bound_by=bound_by, plan=pl, ok=ok)
+                                bound_ms=bound_ms, bound_by=bound_by, plan=pl,
+                                launches_per_call=launches, ok=ok)
             plan_txt = " ".join(f"{k}={v}" for k, v in pl.items())
             log(f"[{tag}] gru_ar {key} B={B} T={T} H={H} out={out} "
-                f"plan: {plan_txt}; max_abs={err:.3e} "
+                f"plan: {plan_txt}; {launches} launch(es) a call; max_abs={err:.3e} "
                 f"rel_l2={rl2:.3e} cos={cos:.6f} kernel={ms:.3f} ms "
                 f"({ms * 1e3 / T:.2f} us/frame) plain={plain_ms:.1f} ms "
                 f"bound={bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}")
@@ -426,8 +554,12 @@ def _k1_rows(dev, gen, calls, T, dtypes, tag="kernels"):
 def phase_kernels(dev):
     """K1 against its plain version at the conversion path's shapes."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    return _k1_rows(dev, gen, (("encoder", 2, 64, 486), ("decoder", 3, 50, 306)), T_KERNEL,
+    rows = _k1_rows(dev, gen, (("encoder", 2, 64, 486), ("decoder", 3, 50, 306)), T_KERNEL,
                     (torch.float32, torch.bfloat16))
+    # row blocks: 64 rows at the HMC sweep's T (past the f32 limit of 46)
+    rows.update(_k1_rows(dev, gen, ((f"decoderB{K1_ROWS_B}", K1_ROWS_B, 50, 306),), K1_ROWS_T,
+                         (torch.float32, torch.bfloat16)))
+    return rows
 
 
 def _match(got, want, wdt, scale_tol):
@@ -456,7 +588,8 @@ def _train_rows(dev, gen, runs, dtypes, tag="kernels"):
     from cyclevae_tpu_torch.ops import _build
     from cyclevae_tpu_torch.ops.cuda_gru import (BWD_PLAN_KEYS, PLAN_KEYS, cuda_gru_ar_bwd,
                                                  cuda_gru_ar_train, gru_ar_bwd_reference,
-                                                 gru_ar_train_reference, plan, plan_bwd)
+                                                 gru_ar_train_reference, max_batch, plan,
+                                                 plan_bwd)
     from cyclevae_tpu_torch.ops.gru_scan import precompute_input_gates
 
     results = {}
@@ -481,32 +614,43 @@ def _train_rows(dev, gen, runs, dtypes, tag="kernels"):
                         y_prev, h_prev, mask, torch.randn((B, H), generator=gen, device=dev),
                         torch.randn((B, out), generator=gen, device=dev))
             for kname in kernels:
+                # past one launch's rows: row blocks of at most max_batch
+                # rows, ceil(B / max_batch) launches a call; the first
+                # block's plan
                 if kname == "gru_ar_train":
                     args = (layer, proj, gx, y0, h0, mask, wdt)
                     fn, ref, tol = cuda_gru_ar_train, gru_ar_train_reference, F32_ATOL
                     bound_ms, bound_by = gru_ar_train_bound_ms(B, T, out, wdt)
-                    pl = dict(zip(PLAN_KEYS,
-                                  plan(_build.load("gru_ar"), B, H, out, wdt, train=True)))
+                    limit = max_batch("k2", H, out, wdt)
+                    pl = dict(zip(PLAN_KEYS, plan(_build.load("gru_ar"), min(B, limit), H, out,
+                                                  wdt, train=True)))
                 else:
                     args = bwd_args
                     fn, ref, tol = cuda_gru_ar_bwd, gru_ar_bwd_reference, GRAD_SCALE_TOL
                     bound_ms, bound_by = gru_ar_bwd_bound_ms(B, T, out, wdt)
+                    limit = max_batch("k3", H, out, wdt)
                     # K3 runs without thread-block clusters: its exchange
                     # crosses L2 (see csrc/gru_ar_bwd.cu)
-                    pl = dict(zip(BWD_PLAN_KEYS, plan_bwd(_build.load("gru_ar_bwd"), B, H, out,
-                                                          wdt)), cluster=1)
-                got, want = fn(*args), ref(*args)
+                    pl = dict(zip(BWD_PLAN_KEYS, plan_bwd(_build.load("gru_ar_bwd"),
+                                                          min(B, limit), H, out, wdt)), cluster=1)
+                before = fn.launches
+                got = fn(*args)
+                launches = fn.launches - before
+                want = ref(*args)
                 torch.cuda.synchronize()
                 err, rl2, cos, ok = _match(got, want, wdt, tol)
+                ok &= launches == -(-B // limit)
                 ms = cuda_ms(lambda: fn(*args), iters=10, warmup=2)
                 plain_ms = cuda_ms(lambda: ref(*args), iters=2)
                 key = f"{kname}/{call}/T{T}/{dname}"
                 results[key] = dict(kernel=kname, call=call, B=B, T=T, out=out, dtype=dname,
                                     max_abs_err=err, rel_l2=rl2, cosine=cos, ms=ms,
                                     us_per_step=ms * 1e3 / T, plain_ms=plain_ms,
-                                    bound_ms=bound_ms, bound_by=bound_by, plan=pl, ok=ok)
+                                    bound_ms=bound_ms, bound_by=bound_by, plan=pl,
+                                    launches_per_call=launches, ok=ok)
                 plan_txt = " ".join(f"{k}={v}" for k, v in pl.items())
-                log(f"[{tag}] {key} B={B} H={H} out={out} plan: {plan_txt}; max_abs={err:.3e} "
+                log(f"[{tag}] {key} B={B} H={H} out={out} plan: {plan_txt}; {launches} "
+                    f"launch(es) a call; max_abs={err:.3e} "
                     f"rel_l2={rl2:.3e} cos={cos:.6f} kernel={ms:.3f} ms "
                     f"({ms * 1e3 / T:.2f} us/step) plain={plain_ms:.1f} ms "
                     f"bound={bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}")
@@ -520,6 +664,9 @@ def phase_train_kernels(dev):
             for name, B, out, conv in TRAIN_CALLS]
     # K3 only: past launch cost
     runs.append(("decoder2B", 10, 50, 306, T_BWD_LONG, ("gru_ar_bwd",)))
+    # row blocks: a bsu-64 step's fused 2B decoder, 128 rows
+    runs.append((f"decoder2B_bsu{ROWS_BSU}", 2 * ROWS_BSU, 50, 306, SEG_LEN,
+                 ("gru_ar_train", "gru_ar_bwd")))
     return _train_rows(dev, gen, runs, (torch.float32, torch.bfloat16))
 
 
@@ -922,25 +1069,11 @@ def phase_vocode(dev):
 
 def speechlike_wav(f0: float, n: int, seed: int, fs: int = SAMPLE_RATE) -> np.ndarray:
     """n samples of a sawtooth source through two moving formant resonators,
-    with breath noise and silence at the edges, in int16 range (the recipe
-    of the repository's end-to-end pipeline test)."""
-    from scipy.signal import lfilter
-    rng = np.random.default_rng(seed)
-    t = np.arange(n) / fs
-    dur = n / fs
-    ph = np.cumsum(f0 * (1.0 + 0.05 * np.sin(2 * np.pi * 2.0 * t))) / fs
-    src = 2.0 * (ph % 1.0) - 1.0
-    f1 = 600 + 200 * np.sin(2 * np.pi * 1.3 * t)
-    out = np.zeros(n)
-    for s in range(0, n, 2048):
-        e = min(s + 2048, n)
-        for fc, bw in ((np.mean(f1[s:e]), 120.0), (1800.0, 200.0)):
-            r = np.exp(-np.pi * bw / fs)
-            th = 2 * np.pi * fc / fs
-            out[s:e] += lfilter([1 - r], [1, -2 * r * np.cos(th), r * r], src[s:e])
-    out += 0.01 * rng.normal(size=n)
-    env = np.minimum(1.0, np.maximum(0.0, np.sin(np.pi * t / dur) * 1.5))
-    return out * env * 8000.0
+    with breath noise and silence at the edges, in int16 range
+    (``cyclevae_tpu_torch.tools.speech_corpus``, whose corpus the tools are
+    measured on)."""
+    from cyclevae_tpu_torch.tools.speech_corpus import speechlike_wav as make
+    return make(f0, n, seed, fs)
 
 
 def phase_convert_wav(dev):
@@ -1482,43 +1615,21 @@ def recorded_draws(generator: torch.Generator):
     return Recorded(generator)
 
 
-def _largest_planned(plan_fn, limit: int = 4096) -> int:
-    """The largest batch B for which ``plan_fn(B)`` makes a plan (it raises
-    where B rows do not fit), by doubling and then bisection."""
-    def fits(b):
-        try:
-            plan_fn(b)
-            return True
-        except RuntimeError:
-            return False
-    if not fits(1):
-        return 0
-    lo = 1
-    while lo < limit and fits(2 * lo):
-        lo *= 2
-    hi = 2 * lo                      # lo fits, hi does not (or is past the limit)
-    while hi - lo > 1:
-        mid = (lo + hi) // 2
-        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
-    return lo
-
-
 def phase_infer(dev):
     """Posterior inference at full width (stage i's samplers on the flagship
     hu1024 CycleVAE, random weights from the seed, on an eval-length
     utterance): the log-joint's value and gradient and 3 HMC steps, kernel
     route against the plain path; short NUTS, batched NUTS and SMC runs; K2
     and K3 at the chain counts and K1 at the predictive's, timed beside their
-    bounds; the largest chain count K2 and K3 plan."""
+    bounds; the largest chain count one K1, K2 and K3 launch takes."""
     from cyclevae_tpu_torch.infer import (Draws, HMCConfig, NUTSConfig, hmc_sample_batch,
                                           make_utterance_logjoint_batched, nuts_sample,
                                           nuts_sample_batch)
     from cyclevae_tpu_torch.infer.logjoint import value_and_grad
-    from cyclevae_tpu_torch.ops import _build
     from cyclevae_tpu_torch.ops.cuda_gru import (cuda_gru_ar, cuda_gru_ar_bwd,
                                                  cuda_gru_ar_train, gru_ar_bwd_reference,
-                                                 gru_ar_reference, gru_ar_train_reference, plan,
-                                                 plan_bwd)
+                                                 gru_ar_reference, gru_ar_train_reference,
+                                                 max_batch)
     from cyclevae_tpu_torch.ops.gru_scan import precompute_input_gates
     from cyclevae_tpu_torch.pipeline.infer_stage import posterior_marginal_smc
     from cyclevae_tpu_torch.vi.train import CycleVAEConfig, init_cyclevae
@@ -1678,17 +1789,17 @@ def phase_infer(dev):
             f"us/step) plain={plain_ms:.1f} ms bound={bound_ms:.4f} ms ({bound_by}) "
             f"{'ok' if good else 'FAIL'}")
 
-    # ---- the largest chain count K2 and K3 plan at H=1024 ----
+    # ---- the largest chain count one K1, K2 and K3 launch takes at H=1024 ----
     for wdt in (torch.float32, torch.bfloat16):
-        c2 = _largest_planned(lambda b: plan(_build.load("gru_ar"), b, H, out, wdt, train=True))
-        c3 = _largest_planned(lambda b: plan_bwd(_build.load("gru_ar_bwd"), b, H, out, wdt))
-        c1 = _largest_planned(lambda b: plan(_build.load("gru_ar"), b, H, out, wdt))
+        c1, c2, c3 = (max_batch(k, H, out, wdt) for k in ("k1", "k2", "k3"))
         results[f"largest_C/{str(wdt).split('.')[-1]}"] = dict(K1=c1, K2=c2, K3=c3)
-        # stage i needs K1 at its 16 predictive draws, K2 and K3 at its 8 chains
+        # stage i runs K1 at its 16 predictive draws, K2 and K3 at its 8
+        # chains, each in one launch
         good = c1 >= 16 and min(c2, c3) >= max(INFER_CHAINS)
         ok &= good
-        log(f"[infer] largest batch planned at H={H} out={out} {str(wdt).split('.')[-1]}: K1 "
-            f"{c1}, K2 {c2}, K3 {c3} (more rows raise) {'ok' if good else 'FAIL'}")
+        log(f"[infer] largest batch one launch takes at H={H} out={out} "
+            f"{str(wdt).split('.')[-1]}: K1 {c1}, K2 {c2}, K3 {c3} (more rows run in row "
+            f"blocks) {'ok' if good else 'FAIL'}")
     log(f"[infer] {'ok' if ok else 'FAIL'}")
     return ok, results
 
@@ -2015,6 +2126,186 @@ def phase_variants(dev, tmp: str):
     return ok, totals, rows
 
 
+def phase_tools(dev, tmp: str):
+    """The port's tools (``cyclevae_tpu_torch.tools``) through their
+    ``main``, each at full width and reduced depth, in phase 7's work
+    directory: their JSON rows, their kernel launches against the
+    prediction from each kernel's row-block limit (``max_batch``), and no
+    "error" or "fault" row.  Returns (ok, the launches of the tools run in
+    this process, those of the scaling ranks)."""
+    from cyclevae_tpu_torch.ops.cuda_gru import max_batch
+    from cyclevae_tpu_torch.tools import (bench, bench_hmc_chains, bench_hmc_trajlen,
+                                          bench_nuts, bench_scaling, bench_smc_particles,
+                                          reeval_criterion, train_eval_vocoder,
+                                          vocode_converted)
+    from cyclevae_tpu_torch.tools._common import kernel_launches, launches_since
+    from cyclevae_tpu_torch.utils.config import (ExperimentConfig, ModelConfig, TrainConfig,
+                                                 load_config)
+
+    t_phase = time.perf_counter()
+    out = os.path.join(tmp, "tools")
+    os.makedirs(out, exist_ok=True)
+    work, wav_root = os.path.join(tmp, "work"), os.path.join(tmp, "wav")
+    ok, fails = True, []
+    blocks = lambda kind, B, out_dim, wdt: -(-B // max_batch(kind, H, out_dim, wdt))
+    dtypes = {"f32": torch.float32, "fast": torch.bfloat16}
+    before_all = kernel_launches()
+
+    def check(name, good, msg):
+        nonlocal ok
+        ok &= bool(good)
+        if not good:
+            fails.append(name)
+        log(f"[tools] {name}: {msg} {'ok' if good else 'FAIL'}")
+
+    def timed_main(mod, argv):
+        t0 = time.perf_counter()
+        res = mod.main(argv + ["--device", str(dev)])
+        return res, time.perf_counter() - t0
+
+    # ---- the train-throughput bench: K2 / K3 per step from the limits ----
+    bench.VARIANTS = [(f"{dname}_pallas_bsu{B}", dict(use_pallas=True, compute_dtype=cd), B)
+                      for B in TOOLS_BENCH_BSU
+                      for dname, cd in (("f32", "float32"), ("bf16", "bfloat16"))]
+    bench.TIMED_STEPS = TOOLS_BENCH_STEPS
+    res, sec = timed_main(bench, ["--out", os.path.join(out, "bench.json")])
+    for label, over, B in bench.VARIANTS:
+        wdt = torch.bfloat16 if over["compute_dtype"] == "bfloat16" else torch.float32
+        # per segment and cycle: encoder and cv encoder (B rows, out 64), the
+        # fused 2B decoder (2B rows, out 50), the cyclic decoder (B, out 50)
+        want = {k: bench.N_SEGS * 2 * (2 * blocks(kind, B, 64, wdt) + blocks(kind, 2 * B, 50, wdt)
+                                       + blocks(kind, B, 50, wdt))
+                for k, kind in (("K2", "k2"), ("K3", "k3"))}
+        fps = res["variants"][label]
+        got = res["launches_per_step"].get(label)
+        check(f"bench {label}", isinstance(fps, float) and got == want,
+              f"{fps} frames/s (median of {TOOLS_BENCH_STEPS}, "
+              f"{res['median_step_seconds'].get(label, float('nan')):.4f} s a step), MFU "
+              f"{res['mfu_per_variant'].get(label)}, launches a step {got} (predicted {want})")
+    log(f"[tools] bench: measured bf16 peak {res['measured_bf16_peak_tflops']} TFLOP/s; "
+        f"{sec:.1f} s")
+
+    # ---- HMC chains: (2L + 2) K2 and 2L K3 calls an iteration, each in blocks ----
+    L = 8
+    res, sec = timed_main(bench_hmc_chains, [
+        "--chains", *map(str, TOOLS_HMC_CHAINS), "--iters", str(TOOLS_ITERS), "--warmup",
+        str(TOOLS_ITERS), "--adapt-mass", "on", "--out", os.path.join(out, "hmc.json")])
+    for mode, rows in res["sweep"].items():
+        wdt = dtypes[mode]
+        for r in rows:
+            C = r["chains"]
+            want = ((2 * L + 2) * blocks("k2", C, 50, wdt), 2 * L * blocks("k3", C, 50, wdt))
+            got = (r["k2_launches_per_iter"], r["k3_launches_per_iter"])
+            check(f"hmc {mode} C={C}", r["finite"] and got == want,
+                  f"{r['samples_per_sec_per_chip']} samples/s, {r['iter_ms']:.1f} ms an "
+                  f"iteration (kinetic loop {r['kinetic_ms_per_iter']:.2f} ms), accept "
+                  f"{r['accept']}, ESS/s {r['ess_per_sec_per_chip']}; K2, K3 an iteration {got} "
+                  f"(predicted {want})")
+    log(f"[tools] bench_hmc_chains {sec:.1f} s")
+
+    # ---- NUTS: one K2 and one K3 per leaf for all chains in lockstep ----
+    res, sec = timed_main(bench_nuts, [
+        "--chains", "32", "--max-depths", "4", "--iters", str(TOOLS_ITERS), "--warmup",
+        str(TOOLS_ITERS), "--out", os.path.join(out, "nuts.json")])
+    for r in res["sweep"]["fast"]:
+        k2, k3 = r["k2_launches_per_iter"], r["k3_launches_per_iter"]
+        check("nuts fast C=32 depth 4",
+              r["finite"] and k2 == k3 and r["mean_leapfrog_per_iter"] <= k2 <= 2 ** 4,
+              f"{r['grad_evals_per_sec_per_chip']} grad-evals/s, {r['iter_ms']} ms an "
+              f"iteration, {r['mean_leapfrog_per_iter']} leapfrogs (cap {r['leapfrog_cap']}), "
+              f"K2 = K3 {k2} an iteration (predicted: equal, from the mean leapfrogs to 16)")
+    log(f"[tools] bench_nuts {sec:.1f} s")
+
+    # ---- SMC: no kernel in the filter; one K1 for the amortized guide ----
+    before = kernel_launches()
+    res, sec = timed_main(bench_smc_particles, [
+        "--frames", "64", "--particles", "256", "--reps", "1",
+        "--out", os.path.join(out, "smc.json")])
+    n = launches_since(before)
+    rows = {p: r[0] for p, r in res["sweep"].items()}
+    check("smc 256 particles", n == {"K1": 1, "K2": 0, "K3": 0, "K4": 0}
+          and all(np.isfinite(r["log_marginal"]) for r in rows.values()),
+          ", ".join(f"{p} {r['particle_steps_per_sec_per_chip']} particle-steps/s ESS "
+                    f"{r['mean_ess']}" for p, r in rows.items())
+          + f"; launches {n} (predicted K1 1); {sec:.1f} s")
+
+    # ---- the trajectory-length sweep: 2 points, no fault row ----
+    res, sec = timed_main(bench_hmc_trajlen, [
+        "--chains", "32", "--iters", str(TOOLS_ITERS), "--warmup", str(TOOLS_ITERS),
+        "--points", "8,0.9,on", "16,0.8,on", "--out", os.path.join(out, "trajlen.json")])
+    check("trajlen 2 points", res["n_faulting_points"] == 0 and all(
+        r["k2_launches_per_iter"] == 2 * r["n_leapfrog"] + 2 for r in res["rows"]),
+        "; ".join(f"L={r['n_leapfrog']} ESS/s {r['ess_per_sec_per_chip']} K2 an iteration "
+                  f"{r['k2_launches_per_iter']}" for r in res["rows"] if not r.get("fault"))
+        + f"; {sec:.1f} s")
+
+    # ---- scaling: 1 and 2 gloo ranks on the card ----
+    res, sec = timed_main(bench_scaling, ["--ranks", "1", "2",
+                                          "--out", os.path.join(out, "scaling.json")])
+    hmc = bench_scaling.HMC
+    iters = 2 * (hmc["n_warmup"] + hmc["n_samples"])        # the warm and the timed run
+    chain_iters = iters * (2 + 2 + 1 + 2)      # fixed 2 chains x2 points, weak 1 and 2 chains
+    want = {"K2": chain_iters * (2 * hmc["n_leapfrog"] + 2), "K3": chain_iters * 2 * hmc["n_leapfrog"]}
+    scaling_launches = res["launches"]
+    check("scaling 1-2 ranks", {k: scaling_launches.get(k) for k in want} == want,
+          f"fixed {res['fixed_work']}, weak {res['weak_scaling']}; launches in the ranks "
+          f"{scaling_launches} (predicted {want}); {sec:.1f} s")
+
+    # ---- the vocoder tools on phase 7's experiment ----
+    # phase 7's experiment (as its run_train saved it) and stage v's vocoder
+    exp = ExperimentConfig(model=ModelConfig(spk_src="SPKA", spk_trg="SPKB"),
+                           train=TrainConfig(epoch_count=RECIPE_EPOCHS))
+    exp_path = os.path.join(work, "exp", exp.name(), "model.json")
+    exp = load_config(exp_path)
+    vexp = os.path.join(work, "exp", f"vocoder_SPKB_hu{RECIPE_VOC_HU}")
+    before = kernel_launches()
+    res, sec = timed_main(vocode_converted, [
+        "--work", work, "--wav-root", wav_root, "--config", exp_path, "--vocoder-exp", vexp,
+        "--hidden-units", str(RECIPE_VOC_HU), "--n-train", str(RECIPE_N_TRAIN),
+        "--out", os.path.join(out, "vocode_converted.json")])
+    n = launches_since(before)
+    m = res["metrics"]
+    check("vocode_converted", n == {"K1": 2 * res["n_eval"], "K2": 0, "K3": 0, "K4": res["n_eval"]}
+          and all(np.isfinite(m[k]) for k in ("mcd_cv_voc", "mcd_cv_world")),
+          f"{res['n_eval']} pair(s): MCD neural {m['mcd_cv_voc']:.2f} dB, WORLD "
+          f"{m['mcd_cv_world']:.2f} dB, F0 rel err {m['f0_rel_err_median']:.3f}, U/V "
+          f"{m['uv_agree']:.3f}; launches {n} (predicted K1 2, K4 1 a pair); {sec:.1f} s")
+    before = kernel_launches()
+    res, sec = timed_main(train_eval_vocoder, [
+        "--work", work, "--wav-root", wav_root, "--speaker", "SPKB", "--epochs", "1",
+        "--n-train", str(RECIPE_N_TRAIN), "--hidden-units", str(RECIPE_VOC_HU),
+        "--out", os.path.join(out, "vocoder_eval.json")])
+    n = launches_since(before)
+    cs = res["copy_synthesis"]
+    check("train_eval_vocoder 1 epoch", n["K4"] == res["n_eval"] and np.isfinite(res["final_nll"])
+          and np.isfinite(cs["mcd"]),
+          f"nll {res['final_nll']:.3f}, copy MCD {cs['mcd']:.2f} dB, F0 rel err "
+          f"{cs['f0_rel_err_median']:.3f}; launches {n} (predicted K4 1 an eval utterance); "
+          f"{sec:.1f} s")
+
+    # ---- re-eval: each checkpoint's eval epoch replayed on K1 ----
+    with open(os.path.join(os.path.dirname(exp_path), "history.json")) as f:
+        hist = {h["epoch"]: h["eval"]["criterion"] for h in json.load(f)["history"] if h["eval"]}
+    before = kernel_launches()
+    res, sec = timed_main(reeval_criterion, [
+        "--work", work, "--wav-root", wav_root, "--config", exp_path,
+        "--n-train", str(RECIPE_N_TRAIN)])
+    n = launches_since(before)
+    gap = max(abs(r["criterion_src"] / hist[r["epoch"]] - 1) for r in res["results"])
+    n_batches = 2 * -(-1 // exp.train.batch_size_utt_eval)     # 1 eval utterance a speaker
+    want = 8 * n_batches * len(res["results"])
+    check("reeval_criterion", n["K1"] == want and gap < 1e-6 and len(res["results"]) == 2,
+          f"criteria {[(r['epoch'], round(r['criterion_src'], 4)) for r in res['results']]}, "
+          f"against the history's {gap:.2e} relative; K1 {n['K1']} (predicted {want}); "
+          f"{sec:.1f} s")
+
+    launches = launches_since(before_all)
+    log(f"[tools] launches in this process: {launches}; in the scaling ranks: "
+        f"{scaling_launches}; phase {time.perf_counter() - t_phase:.1f} s")
+    log(f"[tools] {'ok' if ok else 'FAIL: ' + ', '.join(fails)}")
+    return ok, launches, scaling_launches
+
+
 def phase_parallel(dev):
     """The data-parallel layer (``cyclevae_tpu_torch.parallel``) through the
     dry run's rank function (``parallel.dryrun.rank_on_device``) in ranks
@@ -2194,6 +2485,7 @@ def main() -> int:
         return 1
     import cyclevae_tpu_torch  # noqa: F401  (fails outside the repository)
 
+    adopt_orphans()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -2213,13 +2505,17 @@ def main() -> int:
         recipe_ok, recipe_launches = phase_recipe(dev, tmp)
         infer_ok, _ = phase_infer(dev)
         variants_ok, variant_launches, _ = phase_variants(dev, tmp)
+        tools_ok, tool_launches, scaling_launches = phase_tools(dev, tmp)
     parallel_ok, parallel_launches = phase_parallel(dev)
-    launches += wav_launches + recipe_launches["K1"] + variant_launches["K1"]
-    k2_launches += recipe_launches["K2"] + variant_launches["K2"] + parallel_launches["K2"]
-    k3_launches += recipe_launches["K3"] + variant_launches["K3"] + parallel_launches["K3"]
-    k4_launches += recipe_launches["K4"]
+    launches += (wav_launches + recipe_launches["K1"] + variant_launches["K1"]
+                 + tool_launches["K1"] + scaling_launches.get("K1", 0))
+    k2_launches += (recipe_launches["K2"] + variant_launches["K2"] + parallel_launches["K2"]
+                    + tool_launches["K2"] + scaling_launches.get("K2", 0))
+    k3_launches += (recipe_launches["K3"] + variant_launches["K3"] + parallel_launches["K3"]
+                    + tool_launches["K3"] + scaling_launches.get("K3", 0))
+    k4_launches += recipe_launches["K4"] + tool_launches["K4"]
     ok = (main_ok and train_ok and vocode_ok and wav_ok and recipe_ok and infer_ok and variants_ok
-          and parallel_ok and voc_kern_ok and all(r["ok"] for r in kern.values())
+          and tools_ok and parallel_ok and voc_kern_ok and all(r["ok"] for r in kern.values())
           and all(r["ok"] for r in train_kern.values()))
 
     def entry(name, source, replaces, n, r):
@@ -2255,4 +2551,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        stop_leftovers()            # also when a phase raised
+    sys.exit(rc)

@@ -13,13 +13,21 @@ contracts:
 * ``cuda_gru_ar_bwd`` (K3, ``pallas_gru_ar_bwd``): the reverse-time
   cotangent scan, recomputing each step's gates from the streamed residuals.
 
-Each runs in ONE launch of a hand-written kernel (``csrc/gru_ar.cu`` for K1
-and K2, ``csrc/gru_ar_bwd.cu`` for K3; design notes there) for CUDA tensors,
-and its plain version (``gru_ar_reference``, ``gru_ar_train_reference``,
+Each runs a hand-written kernel (``csrc/gru_ar.cu`` for K1 and K2,
+``csrc/gru_ar_bwd.cu`` for K3; design notes there) for CUDA tensors, and its
+plain version (``gru_ar_reference``, ``gru_ar_train_reference``,
 ``gru_ar_bwd_reference``) for CPU tensors.  A CUDA tensor never falls back:
-the kernel launches or the call raises.  Each wrapper's ``launches`` counts
-its kernel's launches (added to after each launch that succeeded, under a
-lock: ``_build.count_launch``).
+the kernel launches or the call raises.
+
+Every block of a kernel holds all B rows of h in shared memory, so a plan
+exists up to a largest B (``max_batch``: at H = 1024 on an H100, K1 and K2
+46 rows in float32 and 82 in bf16, K3 51 and 148).  A larger batch runs in
+row blocks: the rows of a GRU batch are independent, so the wrapper slices
+every per-row input into consecutive blocks of at most ``max_batch`` rows,
+launches the same kernel once per block and concatenates the outputs along
+B.  A batch within the limit is one launch.  Each wrapper's ``launches``
+counts kernel launches, not calls: one per row block (added to after each
+launch that succeeded, under a lock: ``_build.count_launch``).
 
 Numerics follow the TPU kernels: every operand of a product is rounded to
 the weight dtype where the TPU kernel casts it, products accumulate in
@@ -174,13 +182,25 @@ def _entry(lib: ctypes.CDLL, name: str, argtypes) -> ctypes._CFuncPtr:
 _ENTRIES: Dict[Tuple[int, str], ctypes._CFuncPtr] = {}
 
 
+class RowsDoNotFit(RuntimeError):
+    """A plan's answer that B rows of h do not fit in one block's shared
+    memory (``cudaErrorInvalidConfiguration``, ``csrc/gru_ar.cu`` and
+    ``csrc/gru_ar_bwd.cu`` at the end of their plans)."""
+
+
+_ROWS_DO_NOT_FIT = 9    # cudaErrorInvalidConfiguration
+
+
 def _plan(lib: ctypes.CDLL, entry: str, n_out: int, batch: int, hidden: int,
           out_dim: int, weight_dtype: torch.dtype) -> Tuple[int, ...]:
     vals = [ctypes.c_int() for _ in range(n_out)]
     fn = _entry(lib, f"{entry}_{_WEIGHT_DTYPES[weight_dtype]}",
                 [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * n_out)
     err = fn(batch, hidden, out_dim, *(ctypes.byref(v) for v in vals))
-    _build.check(lib, err, f"{entry} for B={batch} H={hidden} out={out_dim}")
+    what = f"{entry} for B={batch} H={hidden} out={out_dim}"
+    if err == _ROWS_DO_NOT_FIT:
+        raise RowsDoNotFit(f"{what}: the rows do not fit in one block's shared memory")
+    _build.check(lib, err, what)
     return tuple(v.value for v in vals)
 
 
@@ -214,8 +234,9 @@ def plan(lib: ctypes.CDLL, batch: int, hidden: int, out_dim: int,
     """(blocks, hidden units per block, y values each block sums, lanes per
     (row, unit) in the gate phase, dynamic shared bytes) of one K1 (or,
     ``train``, K2) launch on CUDA device ``device`` (the current one by
-    default); raises when the shapes cannot run there.  Made once per shape
-    and device."""
+    default); raises when the shapes cannot run there (``RowsDoNotFit``
+    where B rows do not fit; the wrappers then split B, ``max_batch``).
+    Made once per shape and device."""
     entry = "gru_ar_train_plan" if train else "gru_ar_plan"
     return _cached_plan(lib, entry, 5, batch, hidden, out_dim, weight_dtype, device)
 
@@ -234,9 +255,89 @@ def plan_bwd(lib: ctypes.CDLL, batch: int, hidden: int, out_dim: int,
              weight_dtype: torch.dtype, device: Optional[int] = None) -> Tuple[int, int, int, int]:
     """(blocks, hidden units per block, dh partials copied per pass, dynamic
     shared bytes) of one K3 launch; raises when the shapes cannot run on CUDA
-    device ``device`` (the current one by default).  Made once per shape and
-    device."""
+    device ``device`` (the current one by default; ``RowsDoNotFit`` where B
+    rows do not fit).  Made once per shape and device."""
     return _cached_plan(lib, "gru_ar_bwd_plan", 4, batch, hidden, out_dim, weight_dtype, device)
+
+
+# the largest B each kernel plans, per (kind, H, out, weight dtype, device
+# index): found once by doubling and bisection over the plans
+_MAX_BATCH: Dict[Tuple, int] = {}
+_KINDS = ("k1", "k2", "k3")
+
+
+def _largest(fits, limit: int = 4096) -> int:
+    """The largest B <= ``limit`` with ``fits(B)``, by doubling and then
+    bisection (``fits`` holds for every B up to it and for none past it);
+    0 when not even one row fits."""
+    if not fits(1):
+        return 0
+    lo = 1
+    while lo < limit and fits(min(2 * lo, limit)):
+        lo = min(2 * lo, limit)
+    if lo == limit:
+        return lo
+    hi = min(2 * lo, limit)          # lo fits, hi does not
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
+
+
+def max_batch(kind: str, hidden: int, out_dim: int, weight_dtype: torch.dtype,
+              device: Optional[int] = None) -> int:
+    """The largest B one launch of K1 (``kind`` "k1"), K2 ("k2") or K3
+    ("k3") takes at (H, out, weight dtype) on CUDA device ``device`` (the
+    current one by default): the plan's limit on rows, found once and
+    cached.  Only the plan's "rows do not fit" answer (``RowsDoNotFit``)
+    counts as not fitting; any other error of a plan propagates."""
+    if kind not in _KINDS:
+        raise ValueError(f"kind must be one of {_KINDS}, got {kind!r}")
+    if device is None:
+        device = torch.cuda.current_device()
+    key = (kind, hidden, out_dim, weight_dtype, device)
+    got = _MAX_BATCH.get(key)
+    if got is None:
+        if kind == "k3":
+            lib = _build.load("gru_ar_bwd")
+            make = lambda b: plan_bwd(lib, b, hidden, out_dim, weight_dtype, device)
+        else:
+            lib = _build.load("gru_ar")
+            make = lambda b: plan(lib, b, hidden, out_dim, weight_dtype, kind == "k2", device)
+
+        def fits(b: int) -> bool:
+            try:
+                make(b)
+                return True
+            except RowsDoNotFit:
+                return False
+
+        got = _MAX_BATCH[key] = _largest(fits)
+    return got
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether a wrapper launches its kernel for ``t``: a CUDA tensor does,
+    a CPU tensor takes the plain version."""
+    return t.device.type != "cpu"
+
+
+def _row_blocks(wrapper, kind: str, B: int, hidden: int, out_dim: int,
+                weight_dtype: torch.dtype, dev: torch.device, run_rows):
+    """``run_rows(rows)`` for consecutive row blocks of at most
+    ``max_batch`` rows (one block, all rows, when B is within it), one
+    counted launch each; the outputs concatenated along B."""
+    limit = max_batch(kind, hidden, out_dim, weight_dtype, dev.index)
+    if limit < 1:
+        raise RowsDoNotFit(f"not one row fits a {kind} launch at H={hidden} out={out_dim} "
+                           f"{weight_dtype}")
+    outs = []
+    for b0 in range(0, B, limit):
+        outs.append(run_rows(slice(b0, min(b0 + limit, B))))
+        _build.count_launch(wrapper)
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
 
 
 def cuda_gru_ar(gru_layer: Dict, out_proj: Dict, gates_x: torch.Tensor,
@@ -244,16 +345,15 @@ def cuda_gru_ar(gru_layer: Dict, out_proj: Dict, gates_x: torch.Tensor,
                 weight_dtype: torch.dtype = _F32
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused AR-GRU over a segment (K1). Returns (trj (B,T,out), y_T, h_T),
-    float32.
+    float32.  ``launches`` counts kernel launches: one per row block.
 
     ``weight_dtype=torch.bfloat16`` halves the weight and gate bytes at
     ~1e-2 relative output tolerance.
     """
-    if gates_x.device.type == "cpu":
+    if not _on_card(gates_x):
         return gru_ar_reference(gru_layer, out_proj, gates_x, y0, h0,
                                 weight_dtype)
-    return launch(_build.load("gru_ar"), gru_layer, out_proj, gates_x, y0, h0,
-                  weight_dtype)
+    return _forward_blocks(cuda_gru_ar, gru_layer, out_proj, gates_x, y0, h0, weight_dtype)
 
 
 cuda_gru_ar.launches = 0
@@ -264,12 +364,13 @@ def cuda_gru_ar_train(gru_layer: Dict, out_proj: Dict, gates_x: torch.Tensor,
                       weight_dtype: torch.dtype = _F32
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused AR-GRU over a segment for the training path (K2). Returns
-    (trj (B,T,out), y_T, h_T float32, h_seq (B,T,H) at ``weight_dtype``)."""
-    if gates_x.device.type == "cpu":
+    (trj (B,T,out), y_T, h_T float32, h_seq (B,T,H) at ``weight_dtype``).
+    ``launches`` counts kernel launches: one per row block."""
+    if not _on_card(gates_x):
         return gru_ar_train_reference(gru_layer, out_proj, gates_x, y0, h0,
                                       out_mask, weight_dtype)
-    return launch(_build.load("gru_ar"), gru_layer, out_proj, gates_x, y0, h0,
-                  weight_dtype, out_mask)
+    return _forward_blocks(cuda_gru_ar_train, gru_layer, out_proj, gates_x, y0, h0,
+                           weight_dtype, out_mask)
 
 
 cuda_gru_ar_train.launches = 0
@@ -284,16 +385,12 @@ def _check_common(what: str, dev: torch.device, weight_dtype: torch.dtype, tenso
         raise ValueError(f"the {what} kernel needs all tensors on one device")
 
 
-def launch(lib: ctypes.CDLL, gru_layer: Dict, out_proj: Dict,
-           gates_x: torch.Tensor, y0: torch.Tensor, h0: torch.Tensor,
-           weight_dtype: torch.dtype, out_mask: Optional[torch.Tensor] = None):
-    """Check the inputs, allocate outputs and scratch, and launch the kernel
-    of ``lib`` (a build of ``csrc/gru_ar.cu``) on the current stream: K1, or
-    K2 when ``out_mask`` is given (which also returns ``h_seq``)."""
-    dev = gates_x.device
-    train = out_mask is not None
-    tensors = [gates_x, y0, h0, *gru_layer.values(), *out_proj.values()]
-    _check_common("gru_ar", dev, weight_dtype, tensors + ([out_mask] if train else []))
+def _check_forward(gru_layer: Dict, out_proj: Dict, gates_x: torch.Tensor, y0: torch.Tensor,
+                   h0: torch.Tensor, weight_dtype: torch.dtype,
+                   out_mask: Optional[torch.Tensor]) -> Tuple[int, int, int, int]:
+    """(B, T, H, out) of a K1 / K2 call; raises on shapes that do not fit."""
+    if weight_dtype not in _WEIGHT_DTYPES:
+        raise ValueError(f"weight_dtype must be float32 or bfloat16, got {weight_dtype}")
     B, T, threeH = gates_x.shape
     hidden = gru_layer["w_hh"].shape[1]
     out_dim = out_proj["w"].shape[0]
@@ -302,13 +399,54 @@ def launch(lib: ctypes.CDLL, gru_layer: Dict, out_proj: Dict,
     if tuple(y0.shape) != (B, out_dim) or tuple(h0.shape) != (B, hidden):
         raise ValueError(f"y0 {tuple(y0.shape)} / h0 {tuple(h0.shape)} do not "
                          f"fit B={B}, out={out_dim}, H={hidden}")
-    if train and tuple(out_mask.shape) != (B, T, hidden):
+    if out_mask is not None and tuple(out_mask.shape) != (B, T, hidden):
         raise ValueError(f"out_mask {tuple(out_mask.shape)} is not (B, T, H) = "
                          f"{(B, T, hidden)}")
+    return B, T, hidden, out_dim
+
+
+def _forward_blocks(wrapper, gru_layer, out_proj, gates_x, y0, h0, weight_dtype,
+                    out_mask=None):
+    """K1 (K2 with ``out_mask``) over the batch's row blocks; the weights
+    cast to the weight dtype once for all blocks."""
+    B, _, hidden, out_dim = _check_forward(gru_layer, out_proj, gates_x, y0, h0,
+                                           weight_dtype, out_mask)
+    lib = _build.load("gru_ar")
+    weights = tuple(t.contiguous() for t in _weights(gru_layer, out_proj, weight_dtype))
+    train = out_mask is not None
+    return _row_blocks(
+        wrapper, "k2" if train else "k1", B, hidden, out_dim, weight_dtype, gates_x.device,
+        lambda r: launch_rows(lib, weights, gates_x[r], y0[r], h0[r], weight_dtype,
+                              out_mask[r] if train else None))
+
+
+def launch(lib: ctypes.CDLL, gru_layer: Dict, out_proj: Dict,
+           gates_x: torch.Tensor, y0: torch.Tensor, h0: torch.Tensor,
+           weight_dtype: torch.dtype, out_mask: Optional[torch.Tensor] = None):
+    """One launch of the kernel of ``lib`` (a build of ``csrc/gru_ar.cu``)
+    over all B rows, uncounted: K1, or K2 when ``out_mask`` is given (which
+    also returns ``h_seq``).  Raises where B rows do not fit one launch."""
+    _check_forward(gru_layer, out_proj, gates_x, y0, h0, weight_dtype, out_mask)
+    weights = tuple(t.contiguous() for t in _weights(gru_layer, out_proj, weight_dtype))
+    return launch_rows(lib, weights, gates_x, y0, h0, weight_dtype, out_mask)
+
+
+def launch_rows(lib: ctypes.CDLL, weights: Tuple[torch.Tensor, ...], gates_x: torch.Tensor,
+                y0: torch.Tensor, h0: torch.Tensor, weight_dtype: torch.dtype,
+                out_mask: Optional[torch.Tensor] = None):
+    """Allocate outputs and scratch and launch the kernel of ``lib`` on the
+    current stream for the rows given: ``weights`` = (wy, whh, bhh, wout,
+    bout) as ``_weights`` makes them, contiguous."""
+    dev = gates_x.device
+    train = out_mask is not None
+    wy, whh, bhh, wout, bout = weights
+    _check_common("gru_ar", dev, weight_dtype,
+                  [gates_x, y0, h0, *weights] + ([out_mask] if train else []))
+    B, T, _ = gates_x.shape
+    hidden = whh.shape[1]
+    out_dim = wout.shape[0]
 
     with torch.cuda.device(dev):
-        wy, whh, bhh, wout, bout = (
-            t.contiguous() for t in _weights(gru_layer, out_proj, weight_dtype))
         gx = gates_x.to(weight_dtype).contiguous()
         y0c = y0.to(_F32).contiguous()
         h0c = h0.to(_F32).contiguous()
@@ -343,9 +481,7 @@ def launch(lib: ctypes.CDLL, gru_layer: Dict, out_proj: Dict,
                  smem, _stream(dev))
         _build.check(lib, err, f"{name} launch")
     if train:
-        _build.count_launch(cuda_gru_ar_train)
         return trj, y_last, h_last, h_seq
-    _build.count_launch(cuda_gru_ar)
     return trj, y_last, h_last
 
 
@@ -357,26 +493,29 @@ def cuda_gru_ar_bwd(wout: torch.Tensor, whh: torch.Tensor, wy: torch.Tensor,
     recomputed in the kernel.  Weights in torch layout: ``wout`` (out,H),
     ``whh`` (3H,H), ``wy`` (3H,out); the weight dtype is ``whh.dtype``.
     Returns (dgx, dgh (B,T,3H) at the weight dtype, dy_tot (B,T,out), dh0
-    (B,H), dy0 (B,out) float32)."""
+    (B,H), dy0 (B,out) float32).  ``launches`` counts kernel launches: one
+    per row block."""
     args = (wout, whh, wy, bhh, d_trj, gates_x, y_prev, h_prev, out_mask, d_hT, d_yT)
-    if d_trj.device.type == "cpu":
+    if not _on_card(d_trj):
         return gru_ar_bwd_reference(*args)
-    return launch_bwd(_build.load("gru_ar_bwd"), *args)
+    B, _, hidden, out_dim = _check_bwd(*args)
+    lib = _build.load("gru_ar_bwd")
+    wdt = whh.dtype
+    w = lambda a: a.to(wdt).contiguous()
+    weights = (w(wout), w(whh), w(wy), bhh.to(_F32).contiguous())
+    per_row = (d_trj, gates_x, y_prev, h_prev, out_mask, d_hT, d_yT)
+    return _row_blocks(cuda_gru_ar_bwd, "k3", B, hidden, out_dim, wdt, d_trj.device,
+                       lambda r: launch_bwd_rows(lib, *weights, *(a[r] for a in per_row)))
 
 
 cuda_gru_ar_bwd.launches = 0
 
 
-def launch_bwd(lib: ctypes.CDLL, wout: torch.Tensor, whh: torch.Tensor, wy: torch.Tensor,
-               bhh: torch.Tensor, d_trj: torch.Tensor, gates_x: torch.Tensor,
-               y_prev: torch.Tensor, h_prev: torch.Tensor, out_mask: torch.Tensor,
-               d_hT: torch.Tensor, d_yT: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Check the inputs, allocate outputs and scratch, and launch the kernel
-    of ``lib`` (a build of ``csrc/gru_ar_bwd.cu``) on the current stream."""
-    wdt = whh.dtype
-    dev = d_trj.device
-    _check_common("gru_ar_bwd", dev, wdt,
-                  (wout, whh, wy, bhh, d_trj, gates_x, y_prev, h_prev, out_mask, d_hT, d_yT))
+def _check_bwd(wout, whh, wy, bhh, d_trj, gates_x, y_prev, h_prev, out_mask, d_hT, d_yT
+               ) -> Tuple[int, int, int, int]:
+    """(B, T, H, out) of a K3 call; raises on shapes that do not fit."""
+    if whh.dtype not in _WEIGHT_DTYPES:
+        raise ValueError(f"the weight dtype must be float32 or bfloat16, got {whh.dtype}")
     B, T, hidden = h_prev.shape
     out_dim = d_trj.shape[-1]
     want = {"wout": (out_dim, hidden), "whh": (3 * hidden, hidden), "wy": (3 * hidden, out_dim),
@@ -391,6 +530,33 @@ def launch_bwd(lib: ctypes.CDLL, wout: torch.Tensor, whh: torch.Tensor, wy: torc
                              f"(B={B}, T={T}, H={hidden}, out={out_dim})")
     if T < 1:
         raise ValueError("the gru_ar_bwd kernel needs T >= 1")
+    return B, T, hidden, out_dim
+
+
+def launch_bwd(lib: ctypes.CDLL, wout: torch.Tensor, whh: torch.Tensor, wy: torch.Tensor,
+               bhh: torch.Tensor, d_trj: torch.Tensor, gates_x: torch.Tensor,
+               y_prev: torch.Tensor, h_prev: torch.Tensor, out_mask: torch.Tensor,
+               d_hT: torch.Tensor, d_yT: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """One launch of the kernel of ``lib`` (a build of
+    ``csrc/gru_ar_bwd.cu``) over all B rows, uncounted; raises where B rows
+    do not fit one launch."""
+    _check_bwd(wout, whh, wy, bhh, d_trj, gates_x, y_prev, h_prev, out_mask, d_hT, d_yT)
+    return launch_bwd_rows(lib, wout, whh, wy, bhh, d_trj, gates_x, y_prev, h_prev, out_mask,
+                           d_hT, d_yT)
+
+
+def launch_bwd_rows(lib: ctypes.CDLL, wout: torch.Tensor, whh: torch.Tensor, wy: torch.Tensor,
+                    bhh: torch.Tensor, d_trj: torch.Tensor, gates_x: torch.Tensor,
+                    y_prev: torch.Tensor, h_prev: torch.Tensor, out_mask: torch.Tensor,
+                    d_hT: torch.Tensor, d_yT: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Allocate outputs and scratch and launch the kernel of ``lib`` on the
+    current stream for the rows given."""
+    wdt = whh.dtype
+    dev = d_trj.device
+    _check_common("gru_ar_bwd", dev, wdt,
+                  (wout, whh, wy, bhh, d_trj, gates_x, y_prev, h_prev, out_mask, d_hT, d_yT))
+    B, T, hidden = h_prev.shape
+    out_dim = d_trj.shape[-1]
 
     with torch.cuda.device(dev):
         w = lambda a: a.to(wdt).contiguous()
@@ -422,5 +588,4 @@ def launch_bwd(lib: ctypes.CDLL, wout: torch.Tensor, whh: torch.Tensor, wy: torc
         err = fn(*(_ptr(t) for t in ptrs), B, T, hidden, out_dim, grid, units, stage_kk,
                  smem, _stream(dev))
         _build.check(lib, err, "gru_ar_bwd launch")
-    _build.count_launch(cuda_gru_ar_bwd)
     return dgx, dgh, dy_tot, dh0, dy0

@@ -11,7 +11,6 @@ import pytest
 import torch
 
 from cyclevae_tpu_torch.models.layers import init_dense, init_gru_stack
-from cyclevae_tpu_torch.ops import _build
 from cyclevae_tpu_torch.ops.cuda_gru import (
     cuda_gru_ar,
     cuda_gru_ar_bwd,
@@ -19,8 +18,7 @@ from cyclevae_tpu_torch.ops.cuda_gru import (
     gru_ar_bwd_reference,
     gru_ar_reference,
     gru_ar_train_reference,
-    plan,
-    plan_bwd,
+    max_batch,
 )
 from cyclevae_tpu_torch.ops.gru_ar_vjp import gru_ar_fused
 from cyclevae_tpu_torch.ops.gru_scan import precompute_input_gates
@@ -190,35 +188,21 @@ def test_bwd_kernel_two_launches_bitwise_equal(cuda_device, wdt):
 @pytest.mark.cuda
 @pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
 def test_bwd_kernel_largest_batch_and_one_above(cuda_device, wdt):
-    """At the flagship width K3 runs the largest B its plan accepts (the dh
-    partials then sum in several passes through shared memory), and the
-    next B raises rather than run."""
-    lib = _build.load("gru_ar_bwd")
-
-    def fits(B):
-        try:
-            plan_bwd(lib, B, 1024, 50, wdt)
-        except RuntimeError:
-            return False
-        return True
-
-    lo, hi = 1, 4096   # fits(lo); not fits(hi)
-    assert fits(lo) and not fits(hi)
-    while hi - lo > 1:
-        mid = (lo + hi) // 2
-        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
-    largest = lo
+    """At the flagship width K3 runs the largest B its plan accepts in one
+    launch (the dh partials then sum in several passes through shared
+    memory), and the next B in two row blocks: two launches, the same
+    function."""
+    largest = max_batch("k3", 1024, 50, wdt)
     assert largest >= 16
-    args = _bwd_args(cuda_device, largest, 3, 1024, 50, wdt)
-    got = cuda_gru_ar_bwd(*args)
-    want = gru_ar_bwd_reference(*args)
-    torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        _assert_matches(g, w, wdt, scale_tol=2e-4)
-    before = cuda_gru_ar_bwd.launches
-    with pytest.raises(RuntimeError):
-        cuda_gru_ar_bwd(*_bwd_args(cuda_device, largest + 1, 3, 1024, 50, wdt))
-    assert cuda_gru_ar_bwd.launches == before
+    for B, launches in ((largest, 1), (largest + 1, 2)):
+        args = _bwd_args(cuda_device, B, 3, 1024, 50, wdt)
+        before = cuda_gru_ar_bwd.launches
+        got = cuda_gru_ar_bwd(*args)
+        assert cuda_gru_ar_bwd.launches == before + launches
+        want = gru_ar_bwd_reference(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            _assert_matches(g, w, wdt, scale_tol=2e-4)
 
 
 def _forward(dev, train, B, T, H, out, wdt):
@@ -275,33 +259,50 @@ def test_forward_kernel_two_launches_bitwise_equal(cuda_device, wdt, train):
 @pytest.mark.parametrize("train", [False, True])
 def test_forward_kernel_largest_batch_and_one_above(cuda_device, wdt, train):
     """At the flagship width K1 and K2 run the largest B their plan accepts
-    (several passes of the gate phase over the (row, unit) pairs), and the
-    next B raises rather than run."""
-    lib = _build.load("gru_ar")
-
-    def fits(B):
-        try:
-            plan(lib, B, 1024, 50, wdt, train)
-        except RuntimeError:
-            return False
-        return True
-
-    lo, hi = 1, 4096   # fits(lo); not fits(hi)
-    assert fits(lo) and not fits(hi)
-    while hi - lo > 1:
-        mid = (lo + hi) // 2
-        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
-    largest = lo
+    in one launch (several passes of the gate phase over the (row, unit)
+    pairs), and the next B in two row blocks: two launches, the same
+    function."""
+    largest = max_batch("k2" if train else "k1", 1024, 50, wdt)
     assert largest >= 16
-    fn, ref, args = _forward(cuda_device, train, largest, 3, 1024, 50, wdt)
-    got, want = fn(*args), ref(*args)
+    for B, launches in ((largest, 1), (largest + 1, 2)):
+        fn, ref, args = _forward(cuda_device, train, B, 3, 1024, 50, wdt)
+        before = fn.launches
+        got = fn(*args)
+        assert fn.launches == before + launches
+        want = ref(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            _assert_matches(g, w, wdt)
+
+
+# the row blocks at the sizes the tools run: one past each kernel's limit
+# and B = 128 (a bsu-64 train step's fused 2B decoder, 128 HMC chains), at
+# chip_smoke.py phase 2's tolerances (float32 max abs 1e-4 for K1 and K2,
+# 2e-4 of scale for K3; bf16 rel-L2 < 3e-2, cosine > 0.999)
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["k1", "k2", "k3"])
+@pytest.mark.parametrize("rows", ["limit+1", "128"])
+def test_row_blocks_match_plain(cuda_device, wdt, kind, rows):
+    H, out, T = 1024, 50, 24
+    limit = max_batch(kind, H, out, wdt)
+    B = limit + 1 if rows == "limit+1" else 128
+    if kind == "k3":
+        fn, ref, args = cuda_gru_ar_bwd, gru_ar_bwd_reference, _bwd_args(cuda_device, B, T, H,
+                                                                         out, wdt)
+    else:
+        fn, ref, args = _forward(cuda_device, kind == "k2", B, T, H, out, wdt)
+    before = fn.launches
+    got = fn(*args)
+    assert fn.launches - before == -(-B // limit)
+    want = ref(*args)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
-        _assert_matches(g, w, wdt)
-    before = fn.launches
-    with pytest.raises(RuntimeError):
-        fn(*_forward(cuda_device, train, largest + 1, 3, 1024, 50, wdt)[2])
-    assert fn.launches == before
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if wdt == torch.float32 and kind != "k3":
+            assert float((g - w).abs().max()) <= 1e-4
+        else:
+            _assert_matches(g, w, wdt, scale_tol=2e-4)
 
 
 @pytest.mark.cuda

@@ -159,7 +159,7 @@ def test_package_imports_without_jax():
     many-to-many recipe, its trainer and decode, the classifier and VQ
     trainers, the VQ helpers, the GMM) and the data-parallel layer's (the
     mesh, the draws, spawn, the launcher, the smoke worker, the dry run, the
-    profiling helpers) among them; one HMC step, one sharded HMC step on a
+    profiling helpers) and the tools' (``cyclevae_tpu_torch.tools``) among them; one HMC step, one sharded HMC step on a
     one-process mesh, one vocoder train step, one classifier step, one VQ
     step and one EM step run there."""
     code = (
@@ -183,7 +183,12 @@ def test_package_imports_without_jax():
         "          'pipeline.recipe_mult', 'pipeline.train_stage_cls', 'pipeline.train_stage_vq',\n"
         "          'models.vq', 'models.gmm', 'parallel', 'parallel.mesh', 'parallel.draws',\n"
         "          'parallel.spawn', 'parallel.launch', 'parallel.smoke_worker',\n"
-        "          'parallel.dryrun', 'utils.profiling'):\n"
+        "          'parallel.dryrun', 'utils.profiling', 'tools', 'tools._common',\n"
+        "          'tools.bench', 'tools.train_eval_vocoder', 'tools.vocode_converted',\n"
+        "          'tools.bench_hmc_chains', 'tools.bench_hmc_trajlen', 'tools.bench_nuts',\n"
+        "          'tools.bench_smc_particles', 'tools.diag_smc_amortized',\n"
+        "          'tools.bench_scaling', 'tools.bench_step_breakdown',\n"
+        "          'tools.reeval_criterion', 'tools.speech_corpus'):\n"
         "    assert 'cyclevae_tpu_torch.' + m in sys.modules, m\n"
         "import numpy as np\n"
         "from cyclevae_tpu_torch.dsp import sptk\n"
