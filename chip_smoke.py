@@ -111,6 +111,15 @@ Phases, one line or more each; any failure exits non-zero:
               tool's K1-K4 launches against the prediction from the
               kernels' row-block limits (``ops.cuda_gru.max_batch``: a
               batch past one launch's rows runs in ceil(B / limit) launches);
+              then the fused-vs-sequential conversion bench on phase 7's
+              best checkpoint (T = 600, 3 timed pairs a path: 2 K1 launches
+              a pair fused, 5 sequential), stage 6's wall time with the
+              analysis prefetch on and off through the recipe's command
+              line (1 pair; both runs must write the same outputs), the
+              battery's runner on the fusion bench as a process (its last
+              stdout line is its artifact) and on a stub that exits 1
+              (refused, nothing written), and K1 at the sequential path's
+              B = 1 shapes (T = 1120 and 560) against its plain version;
  10. parallel the data-parallel layer (``cyclevae_tpu_torch.parallel``) on the
               one card: 2 gloo ranks spawned on cuda:0 (NCCL refuses two
               ranks on one card; gloo stages each collective through host
@@ -305,6 +314,10 @@ TOOLS_BENCH_BSU = (5, 64)
 TOOLS_BENCH_STEPS = 3
 TOOLS_HMC_CHAINS = (32, 128)
 TOOLS_ITERS = 2                     # warm-up and sampling iterations each
+# the fused-vs-sequential conversion bench at the JAX tool's T on phase 7's
+# checkpoint (hu1024, f32), 3 timed pairs a path after one warm-up pair
+TOOLS_FUSION_T = 600
+TOOLS_FUSION_REPS = 3
 
 
 def log(msg: str) -> None:
@@ -2134,11 +2147,12 @@ def phase_tools(dev, tmp: str):
     "error" or "fault" row.  Returns (ok, the launches of the tools run in
     this process, those of the scaling ranks)."""
     from cyclevae_tpu_torch.ops.cuda_gru import max_batch
-    from cyclevae_tpu_torch.tools import (bench, bench_hmc_chains, bench_hmc_trajlen,
-                                          bench_nuts, bench_scaling, bench_smc_particles,
+    from cyclevae_tpu_torch.tools import (bench, bench_battery, bench_decode_fusion,
+                                          bench_hmc_chains, bench_hmc_trajlen, bench_nuts,
+                                          bench_scaling, bench_smc_particles, bench_stage6_wall,
                                           reeval_criterion, train_eval_vocoder,
                                           vocode_converted)
-    from cyclevae_tpu_torch.tools._common import kernel_launches, launches_since
+    from cyclevae_tpu_torch.tools._common import decode_epoch, kernel_launches, launches_since
     from cyclevae_tpu_torch.utils.config import (ExperimentConfig, ModelConfig, TrainConfig,
                                                  load_config)
 
@@ -2299,7 +2313,71 @@ def phase_tools(dev, tmp: str):
           f"against the history's {gap:.2e} relative; K1 {n['K1']} (predicted {want}); "
           f"{sec:.1f} s")
 
+    # ---- decode fusion on phase 7's best checkpoint: K1 2 a pair fused, 5 sequential ----
+    expdir = os.path.dirname(exp_path)
+    ckpt = os.path.join(expdir, f"checkpoint-{decode_epoch(expdir)}.pkl")
+    pairs = TOOLS_FUSION_REPS + 1                       # one warm-up pair a path
+    fusion_argv = [ckpt, exp_path, "--frames", str(TOOLS_FUSION_T), "--reps",
+                   str(TOOLS_FUSION_REPS)]
+    before = kernel_launches()
+    res, sec = timed_main(bench_decode_fusion, fusion_argv + [
+        "--out", os.path.join(out, "decode_fusion.json")])
+    n = launches_since(before)
+    want = {"K1": (2 + 5) * pairs, "K2": 0, "K3": 0, "K4": 0}
+    check("decode_fusion", n == want and (res["k1_launches_fused"], res["k1_launches_sequential"])
+          == (2, 5) and all(np.isfinite(res[k]) and res[k] > 0
+                            for k in ("fused_ms", "sequential_ms")),
+          f"T={res['frames']}, {TOOLS_FUSION_REPS} pairs a path: fused {res['fused_ms']} ms, "
+          f"sequential {res['sequential_ms']} ms a pair (speedup {res['speedup']}); K1 a pair "
+          f"{res['k1_launches_fused']} / {res['k1_launches_sequential']} (predicted 2 / 5); "
+          f"launches {n} (predicted K1 {want['K1']}); {sec:.1f} s")
+
+    # ---- stage 6's wall time, prefetch on and off, through the recipe's CLI ----
+    res, sec = timed_main(bench_stage6_wall, [
+        "--work", work, "--wav-root", wav_root, "--config", exp_path, "--conf-dir",
+        os.path.join(tmp, "conf"), "--out", os.path.join(out, "stage6_wall.json")])
+    check("stage6_wall", res["outputs_equal"] is True and res["n_pairs"] == 1
+          and res["value"] > 0 and res["sequential_baseline_s"] > 0,
+          f"{res['n_pairs']} pair(s), epoch {res['decode_epoch']}: prefetch on {res['value']} s, "
+          f"off {res['sequential_baseline_s']} s ({res['overlap_speedup']}x; one pair: the "
+          f"tool, not the overlap), outputs equal {res['outputs_equal']}; {sec:.1f} s")
+
+    # ---- the battery's runner: the fusion bench as a process, then a failing stub ----
+    bdir = os.path.join(out, "battery")
+    os.makedirs(bdir)
+    t0 = time.perf_counter()
+    ran = bench_battery.run_bench(bench_battery.Bench(
+        "bench_decode_fusion", 1200, "BENCH_TORCH_DECODE_FUSION.json",
+        [sys.executable, "-m", "cyclevae_tpu_torch.tools.bench_decode_fusion", *fusion_argv,
+         "--out", os.path.join(bdir, "own.json"), "--device", str(dev)]), bdir, bdir)
+    with open(os.path.join(bdir, "bench_decode_fusion.out")) as f:
+        last = (f.read().splitlines() or [""])[-1]
+    artifact = os.path.join(bdir, "BENCH_TORCH_DECODE_FUSION.json")
+    written = False
+    if os.path.exists(artifact):
+        with open(artifact) as f:
+            written = f.read() == last + "\n"
+    row = json.loads(last) if written else {}
+    refused = not bench_battery.run_bench(bench_battery.Bench(
+        "stub_fails", 60, "STUB.json", [sys.executable, "-c", "print('{}'); raise SystemExit(1)"]),
+        bdir, bdir) and not os.path.exists(os.path.join(bdir, "STUB.json"))
+    check("battery runner", ran and written and refused
+          and (row.get("k1_launches_fused"), row.get("k1_launches_sequential")) == (2, 5),
+          f"the fusion bench's last line written as its artifact {written} (fused "
+          f"{row.get('fused_ms')} ms, sequential {row.get('sequential_ms')} ms); a stub that "
+          f"exits 1 refused, nothing written {refused}; {time.perf_counter() - t0:.1f} s")
+
     launches = launches_since(before_all)
+    # K1 at the sequential path's one-row shapes (the 600-frame source in its
+    # 1120-frame bucket, the 560-frame target in one bucket) against the plain
+    # version; after the count, as a comparison's launches do not count
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    for T in (2 * 560, 560):
+        rows = _k1_rows(dev, gen, (("encoderB1", 1, 64, 486), ("decoderB1", 1, 50, 306)), T,
+                        (torch.float32,), tag="tools")
+        check(f"K1 B=1 T={T}", all(r["ok"] for r in rows.values()),
+              ", ".join(f"{k} {r['ms']:.3f} ms (bound {r['bound_ms']:.4f})"
+                        for k, r in rows.items()))
     log(f"[tools] launches in this process: {launches}; in the scaling ranks: "
         f"{scaling_launches}; phase {time.perf_counter() - t_phase:.1f} s")
     log(f"[tools] {'ok' if ok else 'FAIL: ' + ', '.join(fails)}")

@@ -17,6 +17,9 @@ import torch
 from ..utils.device import resolve_device
 from ..utils.store import read_store
 
+# the repository's root: where ``python -m cyclevae_tpu_torch...`` finds the package
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
 
 def add_device_arg(ap) -> None:
     ap.add_argument("--device", default=None,
@@ -107,6 +110,15 @@ def write_json(path: str, obj, indent: int = 1) -> None:
         json.dump(obj, f, indent=indent)
 
 
+def decode_epoch(expdir: str, epoch: Optional[int] = None) -> int:
+    """``epoch``, or when it is None the best epoch of ``expdir``'s
+    ``history.json``, as stages 5 and 6 take it."""
+    if epoch is not None:
+        return epoch
+    with open(os.path.join(expdir, "history.json")) as f:
+        return int(json.load(f)["best"]["epoch"])
+
+
 def kernel_launches() -> dict:
     """The launch counts of K1, K2, K3 and K4 so far."""
     from ..ops.cuda_gru import cuda_gru_ar, cuda_gru_ar_bwd, cuda_gru_ar_train
@@ -120,6 +132,6 @@ def launches_since(before: dict) -> dict:
     return {k: now[k] - before[k] for k in now}
 
 
-__all__ = ["add_device_arg", "device_entry", "platform", "sync", "timed", "load_cyclevae",
-           "synthetic_sin", "read_real", "write_json", "kernel_launches", "launches_since",
-           "resolve_device"]
+__all__ = ["REPO", "add_device_arg", "device_entry", "platform", "sync", "timed",
+           "load_cyclevae", "synthetic_sin", "read_real", "write_json", "decode_epoch",
+           "kernel_launches", "launches_since", "resolve_device"]

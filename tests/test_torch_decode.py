@@ -188,7 +188,9 @@ def test_package_imports_without_jax():
         "          'tools.bench_hmc_chains', 'tools.bench_hmc_trajlen', 'tools.bench_nuts',\n"
         "          'tools.bench_smc_particles', 'tools.diag_smc_amortized',\n"
         "          'tools.bench_scaling', 'tools.bench_step_breakdown',\n"
-        "          'tools.reeval_criterion', 'tools.speech_corpus'):\n"
+        "          'tools.reeval_criterion', 'tools.speech_corpus',\n"
+        "          'tools.bench_decode_fusion', 'tools.bench_stage6_wall',\n"
+        "          'tools.bench_battery'):\n"
         "    assert 'cyclevae_tpu_torch.' + m in sys.modules, m\n"
         "import numpy as np\n"
         "from cyclevae_tpu_torch.dsp import sptk\n"

@@ -40,10 +40,12 @@ from cyclevae_tpu.vi.train import CycleVAEConfig as JaxConfig
 from cyclevae_tpu.vi.train import init_cyclevae as jax_init
 from cyclevae_tpu_torch.pipeline import decode as td
 from cyclevae_tpu_torch.pipeline import train_stage as tts
-from cyclevae_tpu_torch.tools import (bench, bench_hmc_chains, bench_hmc_trajlen, bench_nuts,
-                                      bench_scaling, bench_smc_particles, bench_step_breakdown,
-                                      diag_smc_amortized, reeval_criterion, speech_corpus,
-                                      train_eval_vocoder, vocode_converted)
+from cyclevae_tpu_torch.tools import (bench, bench_battery, bench_decode_fusion,
+                                      bench_hmc_chains, bench_hmc_trajlen, bench_nuts,
+                                      bench_scaling, bench_smc_particles, bench_stage6_wall,
+                                      bench_step_breakdown, diag_smc_amortized,
+                                      reeval_criterion, speech_corpus, train_eval_vocoder,
+                                      vocode_converted)
 from cyclevae_tpu_torch.utils.config import ExperimentConfig, ModelConfig, TrainConfig
 from cyclevae_tpu_torch.utils.config import save_config
 from cyclevae_tpu_torch.utils.store import write_store
@@ -459,31 +461,40 @@ def test_trajlen_records_a_failing_point_and_goes_on(small, tmp_path, monkeypatc
 REQUIRED = {"train_eval_vocoder": ["--work", "w", "--wav-root", "r"],
             "vocode_converted": ["--work", "w", "--wav-root", "r", "--config", "c",
                                  "--vocoder-exp", "v"],
-            "reeval_criterion": ["--work", "w", "--wav-root", "r", "--config", "c"]}
+            "reeval_criterion": ["--work", "w", "--wav-root", "r", "--config", "c"],
+            "bench_stage6_wall": ["--work", "w", "--wav-root", "r"],
+            "bench_battery": ["quiet", "--work", "w", "--wav-root", "r"]}
+# the fusion bench's checkpoint and model json are positional
+POSITIONAL = {"bench_decode_fusion": ["ckpt.pkl", "model.json"]}
+MODULES = {"train_eval_vocoder": train_eval_vocoder, "vocode_converted": vocode_converted,
+           "reeval_criterion": reeval_criterion, "bench_stage6_wall": bench_stage6_wall,
+           "bench_battery": bench_battery, "bench_decode_fusion": bench_decode_fusion}
 
 
-@pytest.mark.parametrize("name", list(TOOLS) + list(REQUIRED))
+@pytest.mark.parametrize("name", list(TOOLS) + list(REQUIRED) + list(POSITIONAL))
 def test_tool_raises_without_cuda(name, monkeypatch, tmp_path):
     """No ``--device``: the card, and without one an error, never the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
-    mod = TOOLS[name][0] if name in TOOLS else {
-        "train_eval_vocoder": train_eval_vocoder, "vocode_converted": vocode_converted,
-        "reeval_criterion": reeval_criterion}[name]
+    mod = TOOLS[name][0] if name in TOOLS else MODULES[name]
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        mod.main(REQUIRED.get(name, []))
+        mod.main(REQUIRED.get(name, POSITIONAL.get(name, [])))
     assert not os.listdir(tmp_path)
 
 
-@pytest.mark.parametrize("name", list(REQUIRED))
+@pytest.mark.parametrize("name", list(REQUIRED) + list(POSITIONAL))
 def test_corpus_paths_are_required_flags(name):
-    """No default path outside the repository: --wav-root has none."""
-    mod = {"train_eval_vocoder": train_eval_vocoder, "vocode_converted": vocode_converted,
-           "reeval_criterion": reeval_criterion}[name]
-    argv = REQUIRED[name]
-    i = argv.index("--wav-root")
-    with pytest.raises(SystemExit):
-        mod.main(argv[:i] + argv[i + 2:] + ["--device", "cpu"])
+    """No default path outside the repository: --wav-root and --work have
+    none, nor the fusion bench's checkpoint and model."""
+    mod = MODULES[name]
+    argv = REQUIRED.get(name, POSITIONAL.get(name))
+    dropped = [argv[:i] + argv[i + 2:] for i, a in enumerate(argv) if a in ("--wav-root", "--work")]
+    if name in POSITIONAL:
+        dropped = [argv[:1]]
+    assert dropped
+    for short in dropped:
+        with pytest.raises(SystemExit):
+            mod.main(short + ["--device", "cpu"])
 
 
 def _jax_ess_fraction():
