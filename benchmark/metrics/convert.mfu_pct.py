@@ -1,0 +1,8 @@
+"""The model FLOPs of the real frames (and samples) the window's completed
+units needed, per second of the window, over 67 TFLOP/s (float32)."""
+
+from benchmark.harness.readers import mfu_pct
+
+
+def read(w):
+    return mfu_pct(w)
