@@ -1100,10 +1100,14 @@ def phase_convert_wav(dev):
     from cyclevae_tpu_torch.ops.cuda_gru import cuda_gru_ar
     from cyclevae_tpu_torch.pipeline.decode import (Codec, analyze_pair, decode_pair,
                                                     device_decode_pair)
+    from cyclevae_tpu_torch.utils import profiling
     from cyclevae_tpu_torch.utils.config import ExperimentConfig
     from cyclevae_tpu_torch.utils.wavio import write_wav
     from cyclevae_tpu_torch.vi.train import CycleVAEConfig, init_cyclevae
 
+    # host seconds of each stage-6 span recorded in the body of recording()
+    stage_s = lambda: {sp.name.split(".")[-1]: sp.seconds for sp in profiling.spans()
+                       if sp.name.startswith("stage6.")}
     exp = ExperimentConfig()
     fs, hop = exp.feature.fs, exp.feature.fs * exp.feature.shiftms / 1000.0
     suffixes = ("_noGV", "_noGV_src", "_noGV_trg", "_GV", "_GV_src", "_GV_trg", "_DiffGV",
@@ -1123,9 +1127,9 @@ def phase_convert_wav(dev):
                                                    int((T - 1) * hop) + 1, seed=SEED + 20 + 2 * i
                                                    + (side == "trg")))
                 paths.append(path)
-            t0 = time.perf_counter()
-            ana = analyze_pair(exp, *paths, *ranges)
-            ana_s = time.perf_counter() - t0
+            with profiling.recording():
+                ana = analyze_pair(exp, *paths, *ranges)
+            ana_s = stage_s()["analysis"]
             got = (len(ana["src"]["feat"]), len(ana["trg"]["feat"]))
             ok &= got == frames
             jobs.append((f"pair{i}", paths, ana, ana_s))
@@ -1165,12 +1169,11 @@ def phase_convert_wav(dev):
 
         def convert(codec, dt, name, paths, ana, seed):
             outdir = os.path.join(tmp, f"{name}_{dt}_{'kernel' if codec.cfg.use_pallas else 'plain'}")
-            timings = {}
-            t0 = time.perf_counter()
-            metrics = decode_pair(codec, exp, torch.Generator(device=dev).manual_seed(seed),
-                                  *paths, outdir, f0stats, gv, *ranges, out_name=name,
-                                  analysis=ana, timings=timings)
-            timings["total"] = time.perf_counter() - t0
+            with profiling.recording():
+                metrics = decode_pair(codec, exp, torch.Generator(device=dev).manual_seed(seed),
+                                      *paths, outdir, f0stats, gv, *ranges, out_name=name,
+                                      analysis=ana)
+            timings = stage_s()
             wavs = {}
             for sfx in suffixes:
                 rate, y = wavfile.read(os.path.join(outdir, f"{name}{sfx}.wav"))
@@ -1205,7 +1208,7 @@ def phase_convert_wav(dev):
             tol = WAV_F32_REL if dt == "float32" else BF16_REL_L2
             good = n_k1 == 2 and shapes and finite and m_rel < tol and w_rel < tol
             ok &= good
-            total = ana_s + timings["total"]
+            total = ana_s + timings["decode_pair"]
             speech_s = (len(ana["x"])) / fs
             log(f"[convert-wav] {name} {dt}: {T} + {Tt} frames, {speech_s:.3f} s of source speech; "
                 f"host ms: analysis {ana_s * 1e3:.1f}, device {timings['device'] * 1e3:.1f}, "

@@ -20,6 +20,7 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
+from ..utils.profiling import span
 from .draws import Draws
 from .dual_averaging import da_final, da_init, da_update
 from .logjoint import value_and_grad
@@ -95,15 +96,16 @@ def _run(draws: Draws, logjoint_batch: Callable[[torch.Tensor], torch.Tensor],
         return torch.where(accept.reshape(bshape), z_new, z), accept_prob
 
     def warmup(z, step_size, inv_mass, n):
-        da = da_init(step_size, device=z.device)
-        w_sum, w2_sum, accs = torch.zeros_like(z), torch.zeros_like(z), []
-        for _ in range(n):
-            z, acc = one_step(z, torch.exp(da.log_step), inv_mass)
-            da = da_update(da, chain_mean(acc) if shared else acc, target=cfg.target_accept)
-            w_sum, w2_sum = w_sum + z, w2_sum + z ** 2
-            accs.append(acc)
-        var = w2_sum / n - (w_sum / n) ** 2 if n else torch.zeros_like(z)
-        return z, da, (chain_mean(var) if shared else var), accs
+        with span("hmc.warmup"):
+            da = da_init(step_size, device=z.device)
+            w_sum, w2_sum, accs = torch.zeros_like(z), torch.zeros_like(z), []
+            for _ in range(n):
+                z, acc = one_step(z, torch.exp(da.log_step), inv_mass)
+                da = da_update(da, chain_mean(acc) if shared else acc, target=cfg.target_accept)
+                w_sum, w2_sum = w_sum + z, w2_sum + z ** 2
+                accs.append(acc)
+            var = w2_sum / n - (w_sum / n) ** 2 if n else torch.zeros_like(z)
+            return z, da, (chain_mean(var) if shared else var), accs
 
     init_step = torch.full((C,) if not shared else (), cfg.step_size, device=z0.device)
     inv_mass0 = torch.ones_like(z0[0] if shared else z0)
@@ -124,10 +126,11 @@ def _run(draws: Draws, logjoint_batch: Callable[[torch.Tensor], torch.Tensor],
     step_size = da_final(da)
 
     samples, accs = [], []
-    for _ in range(cfg.n_samples):
-        z, acc = one_step(z, step_size, inv_mass)
-        samples.append(z)
-        accs.append(acc)
+    with span("hmc.sample"):
+        for _ in range(cfg.n_samples):
+            z, acc = one_step(z, step_size, inv_mass)
+            samples.append(z)
+            accs.append(acc)
     stack = lambda xs: torch.stack(xs) if xs else torch.zeros((0, C), device=z0.device)
     return torch.stack(samples), stack(warm_acc), stack(accs), step_size, inv_mass
 

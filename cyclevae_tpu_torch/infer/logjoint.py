@@ -21,6 +21,7 @@ from typing import Callable, Tuple
 import torch
 
 from ..models.gru_vae import gru_rnn_apply
+from ..utils.profiling import count
 from ..utils.tree import tree_map
 from ..vi.elbo import mcd_constant
 from ..vi.train import CycleVAEConfig, CycleVAEParams
@@ -59,13 +60,15 @@ def make_utterance_logjoint_batched(
     """Batched-chain log-joint: z (C, T, lat_dim) -> (C,) log p(x, z_c).
 
     Chains ride the decoder's batch axis: one AR-GRU call (one K2, and one
-    K3 for a gradient) for all chains."""
+    K3 for a gradient) for all chains.  Each call adds one to the counter
+    ``logjoint.evals`` (``utils.profiling``)."""
     params = _frozen(params)
     mcep = feats[..., cfg.stdim:]
     beta = mcd_constant() * _SQRT2 / obs_scale
     s = params.decoder["scale_out"]
 
     def logjoint(z: torch.Tensor) -> torch.Tensor:
+        count("logjoint.evals")
         C = z.shape[0]
         y0 = ((0.0 - s["mean"]) / s["scale"]).expand(C, cfg.out_dim)
         code_z = torch.cat([spk_code.expand((C,) + tuple(spk_code.shape)), z], dim=-1)

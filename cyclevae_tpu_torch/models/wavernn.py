@@ -68,8 +68,10 @@ def n_samples_for(cfg: WaveRNNConfig, n_frames: int) -> int:
 
 def _log1p_mu(mu: int, device) -> torch.Tensor:
     # log1p(mu) rounded once to float32, on the tensor's device so that a
-    # division by it is a true division (not a product with a reciprocal)
-    return torch.tensor(math.log1p(mu), dtype=_F32, device=device)
+    # division by it is a true division (not a product with a reciprocal);
+    # filled there, not copied from the host: a copy from pageable host
+    # memory waits for the stream, e.g. for K4 before its samples are decoded
+    return torch.full((), math.log1p(mu), dtype=_F32, device=device)
 
 
 def mulaw_encode(x: torch.Tensor, n_classes: int = 256) -> torch.Tensor:

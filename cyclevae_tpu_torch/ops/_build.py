@@ -20,6 +20,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
+from ..utils.profiling import span
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
@@ -97,7 +99,8 @@ def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     with _LOAD_LOCK:
         lib = _LOADED.get((name, defines))
         if lib is None:
-            lib = ctypes.CDLL(str(build([name], defines)[name]))
+            with span("kernel.build"):
+                lib = ctypes.CDLL(str(build([name], defines)[name]))
             lib.cuda_error_string.argtypes = [ctypes.c_int]
             lib.cuda_error_string.restype = ctypes.c_char_p
             _LOADED[(name, defines)] = lib

@@ -27,7 +27,6 @@ from __future__ import annotations
 import logging
 import os
 import threading
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,6 +38,7 @@ from ..models.gru_vae import (gru_rnn_apply, sampling_vae_batch,
                               sampling_vae_laplace_batch)
 from ..utils.config import ExperimentConfig
 from ..utils.device import resolve_device
+from ..utils.profiling import fetch, span
 from ..utils.store import read_store, write_store
 from ..utils.wavio import low_cut_filter, low_pass_filter, read_wav, write_wav
 from ..vi.train import CycleVAEConfig, CycleVAEParams, params_to
@@ -159,7 +159,7 @@ class Codec:
     @torch.inference_mode()
     def encode(self, feat: np.ndarray) -> np.ndarray:
         feat, T = self._pad(np.asarray(feat, np.float32))
-        return self._encode_b(self._tensor(feat)[None])[0, :T].cpu().numpy()
+        return fetch(self._encode_b(self._tensor(feat)[None])[0, :T]).numpy()
 
     @torch.inference_mode()
     def latent_mean(self, generator: Optional[torch.Generator], lat: np.ndarray,
@@ -169,13 +169,13 @@ class Codec:
         lat, T = self._pad(np.asarray(lat, np.float32))
         if eps is not None:
             eps = self._eps(np.asarray(eps)[:, None], [T], lat.shape[0])[:, 0]
-        return self._latent_mean(generator, self._tensor(lat), eps)[:T].cpu().numpy()
+        return fetch(self._latent_mean(generator, self._tensor(lat), eps)[:T]).numpy()
 
     @torch.inference_mode()
     def decode(self, code: np.ndarray, z: np.ndarray) -> np.ndarray:
         cz, T = self._pad(np.concatenate([code, z], axis=-1, dtype=np.float32))
         out = self._decode_b(self._tensor(cz)[None])[0, :T]
-        return out.cpu().numpy().astype(np.float64)
+        return fetch(out).numpy().astype(np.float64)
 
     @torch.inference_mode()
     def encode_mean(self, generator: Optional[torch.Generator],
@@ -184,22 +184,37 @@ class Codec:
         """Fused batched encode + n_smpl_dec posterior-mean draw for K
         utterances in ONE device call.  Returns ([lat_i], [z_i]) trimmed.
         ``eps`` (n_smpl_dec, K, max T_i, lat) replaces the generator's draws."""
-        stack, lens = self._pad_stack([np.asarray(f, np.float32) for f in feats])
-        lat = self._encode_b(self._tensor(stack))
-        z = self._latent_mean(generator, lat, self._eps(eps, lens, stack.shape[1]))
-        lat, z = lat.cpu().numpy(), z.cpu().numpy()
-        return ([lat[i, :n] for i, n in enumerate(lens)],
-                [z[i, :n] for i, n in enumerate(lens)])
+        with span("codec.encode_mean"):
+            with span("codec.pack"):
+                stack, lens = self._pad_stack([np.asarray(f, np.float32) for f in feats])
+                x = self._tensor(stack)
+                eps = self._eps(eps, lens, stack.shape[1])
+            with span("codec.encode"):
+                lat = self._encode_b(x)
+            with span("codec.latent_mean"):
+                z = self._latent_mean(generator, lat, eps)
+            lat, z = fetch(lat), fetch(z)
+            with span("codec.unpack"):
+                lat, z = lat.numpy(), z.numpy()
+                return ([lat[i, :n] for i, n in enumerate(lens)],
+                        [z[i, :n] for i, n in enumerate(lens)])
 
     @torch.inference_mode()
     def decode_batch(self, pairs: List[Tuple[np.ndarray, np.ndarray]]
                      ) -> List[np.ndarray]:
         """Batched decode of K (code, z) pairs in ONE device call (the
         3-direction stage-6 fan-out becomes a single batched AR scan)."""
-        stack, lens = self._pad_stack(
-            [np.concatenate([c, z], axis=-1, dtype=np.float32) for c, z in pairs])
-        out = self._decode_b(self._tensor(stack)).cpu().numpy().astype(np.float64)
-        return [out[i, :n] for i, n in enumerate(lens)]
+        with span("codec.decode_batch"):
+            with span("codec.pack"):
+                stack, lens = self._pad_stack(
+                    [np.concatenate([c, z], axis=-1, dtype=np.float32) for c, z in pairs])
+                x = self._tensor(stack)
+            with span("codec.decode"):
+                out = self._decode_b(x)
+            out = fetch(out)
+            with span("codec.unpack"):
+                out = out.numpy().astype(np.float64)
+                return [out[i, :n] for i, n in enumerate(lens)]
 
 
 def _speaker_codes(T: int, n_spk: int, idx: int) -> np.ndarray:
@@ -232,10 +247,11 @@ def gv_postfilter(cvmcep: np.ndarray, gv_mean_data: np.ndarray,
                   cvgv_mean_model: np.ndarray) -> np.ndarray:
     """Scale mcep deviations by sqrt(gv_data/gv_model), keep c0
     (decode…py:418-421)."""
-    datamean = np.mean(cvmcep[:, 1:], axis=0)
-    return np.c_[cvmcep[:, 0],
-                 np.sqrt(gv_mean_data / cvgv_mean_model)
-                 * (cvmcep[:, 1:] - datamean) + datamean]
+    with span("vocoder.postfilter"):
+        datamean = np.mean(cvmcep[:, 1:], axis=0)
+        return np.c_[cvmcep[:, 0],
+                     np.sqrt(gv_mean_data / cvgv_mean_model)
+                     * (cvmcep[:, 1:] - datamean) + datamean]
 
 
 def latent_dtw_metrics(lat_src: np.ndarray, lat_trg: np.ndarray,
@@ -260,11 +276,12 @@ def analyze_pair(exp: ExperimentConfig, wav_file: str, wav_trg_file: str,
     Split out so a caller can prefetch analyses on a producer thread while
     the device decodes the previous pair (decode…py:254-299)."""
     fcfg = exp.feature
-    fs, x = read_wav(wav_file, cutoff=int(fcfg.highpass_cutoff))
-    src = _feat_from_wav(x, fs, minf0, maxf0, pow_src, fcfg)
-    _, x_trg = read_wav(wav_trg_file, cutoff=int(fcfg.highpass_cutoff))
-    trg = _feat_from_wav(x_trg, fs, minf0_trg, maxf0_trg, pow_trg, fcfg)
-    return {"fs": fs, "x": x, "src": src, "trg": trg}
+    with span("stage6.analysis"):
+        fs, x = read_wav(wav_file, cutoff=int(fcfg.highpass_cutoff))
+        src = _feat_from_wav(x, fs, minf0, maxf0, pow_src, fcfg)
+        _, x_trg = read_wav(wav_trg_file, cutoff=int(fcfg.highpass_cutoff))
+        trg = _feat_from_wav(x_trg, fs, minf0_trg, maxf0_trg, pow_trg, fcfg)
+        return {"fs": fs, "x": x, "src": src, "trg": trg}
 
 
 def device_decode_pair(codec: Codec, generator: Optional[torch.Generator],
@@ -278,7 +295,7 @@ def device_decode_pair(codec: Codec, generator: Optional[torch.Generator],
     cfg = codec.cfg
     if generator is None and eps is None:
         generator = torch.Generator(device=codec.device).manual_seed(0)
-    with codec.lock:
+    with span("decode.device_decode_pair"), codec.lock:
         (lat_src, lat_trg), (z_src, z_trg) = codec.encode_mean(
             generator, [src_feat, trg_feat], eps)
         T, Tt = len(z_src), len(z_trg)
@@ -297,123 +314,115 @@ def decode_pair(codec: Codec, exp: ExperimentConfig,
                 minf0: float, maxf0: float, minf0_trg: float, maxf0_trg: float,
                 pow_src: float, pow_trg: float,
                 out_name: Optional[str] = None,
-                analysis: Optional[dict] = None, eps=None,
-                timings: Optional[Dict[str, float]] = None) -> Dict[str, float]:
+                analysis: Optional[dict] = None, eps=None) -> Dict[str, float]:
     """Full decode of one (source wav, target wav) pair; writes 8 wavs.
     Returns the metric dict for corpus aggregation (decode…py:604-644).
     ``analysis``: pre-computed analyze_pair output (prefetch path).
     ``generator`` / ``eps``: the posterior-mean draws, as
-    ``device_decode_pair`` takes them.  ``timings``: if given, filled with
-    the host-clock seconds of each stage ("analysis", "device", "metrics"
-    for the metrics, mod_pow and the postfilter, "synthesis" for the eight
-    renderings and their files)."""
+    ``device_decode_pair`` takes them.  Recorded under the span
+    ``stage6.decode_pair``, its stages under ``stage6.analysis`` (when
+    ``analysis`` is not given), ``stage6.device``, ``stage6.metrics`` (the
+    metrics, mod_pow and the postfilter) and ``stage6.synthesis`` (the eight
+    renderings and their files): see ``utils.profiling``."""
     fcfg = exp.feature
     cfg = codec.cfg
-    clock = [time.perf_counter()]
+    with span("stage6.decode_pair"):
+        if analysis is None:
+            analysis = analyze_pair(exp, wav_file, wav_trg_file, minf0, maxf0,
+                                    minf0_trg, maxf0_trg, pow_src, pow_trg)
+        fs, x = analysis["fs"], analysis["x"]
+        src, trg = analysis["src"], analysis["trg"]
 
-    def lap(stage):
-        now = time.perf_counter()
-        if timings is not None:
-            timings[stage] = now - clock[0]
-        clock[0] = now
+        base = out_name or os.path.splitext(os.path.basename(wav_file))[0]
+        os.makedirs(outdir, exist_ok=True)
 
-    if analysis is None:
-        analysis = analyze_pair(exp, wav_file, wav_trg_file, minf0, maxf0,
-                                minf0_trg, maxf0_trg, pow_src, pow_trg)
-        lap("analysis")
-    fs, x = analysis["fs"], analysis["x"]
-    src, trg = analysis["src"], analysis["trg"]
+        with span("stage6.device"):
+            lat_src, lat_trg, cvmcep, cvmcep_src, cvmcep_trg = device_decode_pair(
+                codec, generator, src["feat"], trg["feat"], eps=eps)
 
-    base = out_name or os.path.splitext(os.path.basename(wav_file))[0]
-    os.makedirs(outdir, exist_ok=True)
+        with span("stage6.metrics"):
+            metrics: Dict[str, float] = {}
+            metrics.update(latent_dtw_metrics(lat_src, lat_trg, src["spcidx"],
+                                              trg["spcidx"], cfg.lat_dim))
 
-    lat_src, lat_trg, cvmcep, cvmcep_src, cvmcep_trg = device_decode_pair(
-        codec, generator, src["feat"], trg["feat"], eps=eps)
-    lap("device")
+            # --- MCD of conversion vs target (DTW), recon vs source (framewise) ---
+            mcep_src_spc = src["mcep"][src["spcidx"]].astype(np.float64)
+            mcep_trg_spc = trg["mcep"][trg["spcidx"]].astype(np.float64)
+            cv_spc = cvmcep[src["spcidx"]]
+            _, _, metrics["mcdpow_cv"], _ = dtw_c.dtw_org_to_trg(cv_spc, mcep_trg_spc)
+            _, _, metrics["mcd_cv"], _ = dtw_c.dtw_org_to_trg(cv_spc[:, 1:],
+                                                              mcep_trg_spc[:, 1:])
+            metrics["mcdpow_src"], _ = dtw_c.calc_mcd(cvmcep_src[src["spcidx"]],
+                                                      mcep_src_spc)
+            metrics["mcd_src"], _ = dtw_c.calc_mcd(cvmcep_src[src["spcidx"]][:, 1:],
+                                                   mcep_src_spc[:, 1:])
+            metrics["mcdpow_trg"], _ = dtw_c.calc_mcd(cvmcep_trg[trg["spcidx"]],
+                                                      mcep_trg_spc)
+            metrics["mcd_trg"], _ = dtw_c.calc_mcd(cvmcep_trg[trg["spcidx"]][:, 1:],
+                                                   mcep_trg_spc[:, 1:])
 
-    metrics: Dict[str, float] = {}
-    metrics.update(latent_dtw_metrics(lat_src, lat_trg, src["spcidx"],
-                                      trg["spcidx"], cfg.lat_dim))
+            # --- power correction (decode…py:406-416) ---
+            # mc2e of the (fixed) reference mceps is the stage-6 host hot path —
+            # compute once per side and share across all 6 mod_pow calls
+            src_e = sptk.mc2e(src["mcep"], alpha=fcfg.mcep_alpha, irlen=fcfg.irlen)
+            trg_e = sptk.mc2e(trg["mcep"], alpha=fcfg.mcep_alpha, irlen=fcfg.irlen)
+            cvmcep = mod_pow(cvmcep, src["mcep"], alpha=fcfg.mcep_alpha,
+                             irlen=fcfg.irlen, ref_e=src_e)
+            cvmcep_src = mod_pow(cvmcep_src, src["mcep"], alpha=fcfg.mcep_alpha,
+                                 irlen=fcfg.irlen, ref_e=src_e)
+            cvmcep_trg = mod_pow(cvmcep_trg, trg["mcep"], alpha=fcfg.mcep_alpha,
+                                 irlen=fcfg.irlen, ref_e=trg_e)
 
-    # --- MCD of conversion vs target (DTW), recon vs source (framewise) ---
-    mcep_src_spc = src["mcep"][src["spcidx"]].astype(np.float64)
-    mcep_trg_spc = trg["mcep"][trg["spcidx"]].astype(np.float64)
-    cv_spc = cvmcep[src["spcidx"]]
-    _, _, metrics["mcdpow_cv"], _ = dtw_c.dtw_org_to_trg(cv_spc, mcep_trg_spc)
-    _, _, metrics["mcd_cv"], _ = dtw_c.dtw_org_to_trg(cv_spc[:, 1:],
-                                                      mcep_trg_spc[:, 1:])
-    metrics["mcdpow_src"], _ = dtw_c.calc_mcd(cvmcep_src[src["spcidx"]],
-                                              mcep_src_spc)
-    metrics["mcd_src"], _ = dtw_c.calc_mcd(cvmcep_src[src["spcidx"]][:, 1:],
-                                           mcep_src_spc[:, 1:])
-    metrics["mcdpow_trg"], _ = dtw_c.calc_mcd(cvmcep_trg[trg["spcidx"]],
-                                              mcep_trg_spc)
-    metrics["mcd_trg"], _ = dtw_c.calc_mcd(cvmcep_trg[trg["spcidx"]][:, 1:],
-                                           mcep_trg_spc[:, 1:])
+            # --- GV postfilter (decode…py:418-467) ---
+            cvmcep_gv = gv_postfilter(cvmcep, gv["gv_mean_trg"], gv["cvgv_mean"])
+            cvmcep_src_gv = gv_postfilter(cvmcep_src, gv["gv_mean_src"], gv["cvgvsrc_mean"])
+            cvmcep_trg_gv = gv_postfilter(cvmcep_trg, gv["gv_mean_trg"], gv["cvgvtrg_mean"])
+            _, _, metrics["mcd_cvgv"], _ = dtw_c.dtw_org_to_trg(
+                cvmcep_gv[src["spcidx"]][:, 1:], mcep_trg_spc[:, 1:])
+            cvmcep_gv = mod_pow(cvmcep_gv, src["mcep"], alpha=fcfg.mcep_alpha,
+                                irlen=fcfg.irlen, ref_e=src_e)
+            cvmcep_src_gv = mod_pow(cvmcep_src_gv, src["mcep"], alpha=fcfg.mcep_alpha,
+                                    irlen=fcfg.irlen, ref_e=src_e)
+            cvmcep_trg_gv = mod_pow(cvmcep_trg_gv, trg["mcep"], alpha=fcfg.mcep_alpha,
+                                    irlen=fcfg.irlen, ref_e=trg_e)
 
-    # --- power correction (decode…py:406-416) ---
-    # mc2e of the (fixed) reference mceps is the stage-6 host hot path —
-    # compute once per side and share across all 6 mod_pow calls
-    src_e = sptk.mc2e(src["mcep"], alpha=fcfg.mcep_alpha, irlen=fcfg.irlen)
-    trg_e = sptk.mc2e(trg["mcep"], alpha=fcfg.mcep_alpha, irlen=fcfg.irlen)
-    cvmcep = mod_pow(cvmcep, src["mcep"], alpha=fcfg.mcep_alpha,
-                     irlen=fcfg.irlen, ref_e=src_e)
-    cvmcep_src = mod_pow(cvmcep_src, src["mcep"], alpha=fcfg.mcep_alpha,
-                         irlen=fcfg.irlen, ref_e=src_e)
-    cvmcep_trg = mod_pow(cvmcep_trg, trg["mcep"], alpha=fcfg.mcep_alpha,
-                         irlen=fcfg.irlen, ref_e=trg_e)
+            # --- differential mceps + converted F0 (decode…py:469-477) ---
+            mc_cv_diff = cvmcep_gv - src["mcep"]
+            cvf0 = convert_f0(src["f0"], f0stats["lf0_mean_src"], f0stats["lf0_std_src"],
+                              f0stats["lf0_mean_trg"], f0stats["lf0_std_trg"])
 
-    # --- GV postfilter (decode…py:418-467) ---
-    cvmcep_gv = gv_postfilter(cvmcep, gv["gv_mean_trg"], gv["cvgv_mean"])
-    cvmcep_src_gv = gv_postfilter(cvmcep_src, gv["gv_mean_src"], gv["cvgvsrc_mean"])
-    cvmcep_trg_gv = gv_postfilter(cvmcep_trg, gv["gv_mean_trg"], gv["cvgvtrg_mean"])
-    _, _, metrics["mcd_cvgv"], _ = dtw_c.dtw_org_to_trg(
-        cvmcep_gv[src["spcidx"]][:, 1:], mcep_trg_spc[:, 1:])
-    cvmcep_gv = mod_pow(cvmcep_gv, src["mcep"], alpha=fcfg.mcep_alpha,
-                        irlen=fcfg.irlen, ref_e=src_e)
-    cvmcep_src_gv = mod_pow(cvmcep_src_gv, src["mcep"], alpha=fcfg.mcep_alpha,
-                            irlen=fcfg.irlen, ref_e=src_e)
-    cvmcep_trg_gv = mod_pow(cvmcep_trg_gv, trg["mcep"], alpha=fcfg.mcep_alpha,
-                            irlen=fcfg.irlen, ref_e=trg_e)
+        with span("stage6.synthesis"):
+            # --- synthesis x8 (decode…py:479-548) ---
+            def synth(mcep_mat, f0_use, ap_use, suffix):
+                cvsp = sptk.mc2sp(mcep_mat, fcfg.mcep_alpha, fcfg.fftl)
+                wav = world.synthesize(f0_use, cvsp, ap_use, fs,
+                                       frame_period=fcfg.shiftms)
+                write_wav(os.path.join(outdir, f"{base}{suffix}.wav"), fs, wav)
 
-    # --- differential mceps + converted F0 (decode…py:469-477) ---
-    mc_cv_diff = cvmcep_gv - src["mcep"]
-    cvf0 = convert_f0(src["f0"], f0stats["lf0_mean_src"], f0stats["lf0_std_src"],
-                      f0stats["lf0_mean_trg"], f0stats["lf0_std_trg"])
-    lap("metrics")
+            synth(cvmcep, cvf0, src["ap"], "_noGV")
+            synth(cvmcep_src, src["f0"], src["ap"], "_noGV_src")
+            synth(cvmcep_trg, trg["f0"], trg["ap"], "_noGV_trg")
+            synth(cvmcep_gv, cvf0, src["ap"], "_GV")
+            synth(cvmcep_src_gv, src["f0"], src["ap"], "_GV_src")
+            synth(cvmcep_trg_gv, trg["f0"], trg["ap"], "_GV_trg")
 
-    # --- synthesis x8 (decode…py:479-548) ---
-    def synth(mcep_mat, f0_use, ap_use, suffix):
-        cvsp = sptk.mc2sp(mcep_mat, fcfg.mcep_alpha, fcfg.fftl)
-        wav = world.synthesize(f0_use, cvsp, ap_use, fs,
-                               frame_period=fcfg.shiftms)
-        write_wav(os.path.join(outdir, f"{base}{suffix}.wav"), fs, wav)
+            # differential-spectrum MLSA filtering of the original waveform
+            shiftl = int(fs / 1000 * fcfg.shiftms)
+            b = sptk.mc2b(mc_cv_diff, fcfg.mcep_alpha)
+            wav_diff = sptk.mlsadf(x, b, fcfg.mcep_alpha, hop=shiftl)
+            write_wav(os.path.join(outdir, f"{base}_DiffGV.wav"), fs, wav_diff)
 
-    synth(cvmcep, cvf0, src["ap"], "_noGV")
-    synth(cvmcep_src, src["f0"], src["ap"], "_noGV_src")
-    synth(cvmcep_trg, trg["f0"], trg["ap"], "_noGV_trg")
-    synth(cvmcep_gv, cvf0, src["ap"], "_GV")
-    synth(cvmcep_src_gv, src["f0"], src["ap"], "_GV_src")
-    synth(cvmcep_trg_gv, trg["f0"], trg["ap"], "_GV_trg")
+            # re-analysis of the filtered waveform + F0-swapped re-synthesis
+            wav_hp = low_cut_filter(np.clip(wav_diff, -32768, 32767), fs, 70)
+            sp_diff = world.cheaptrick(wav_hp, src["f0"], src["time_axis"], fs, fcfg.fftl)
+            ap_diff = world.d4c(wav_hp, src["f0"], src["time_axis"], fs, fcfg.fftl)
+            wav_f0 = world.synthesize(cvf0, sp_diff, ap_diff, fs,
+                                      frame_period=fcfg.shiftms)
+            write_wav(os.path.join(outdir, f"{base}_DiffGVF0.wav"), fs, wav_f0)
 
-    # differential-spectrum MLSA filtering of the original waveform
-    shiftl = int(fs / 1000 * fcfg.shiftms)
-    b = sptk.mc2b(mc_cv_diff, fcfg.mcep_alpha)
-    wav_diff = sptk.mlsadf(x, b, fcfg.mcep_alpha, hop=shiftl)
-    write_wav(os.path.join(outdir, f"{base}_DiffGV.wav"), fs, wav_diff)
-
-    # re-analysis of the filtered waveform + F0-swapped re-synthesis
-    wav_hp = low_cut_filter(np.clip(wav_diff, -32768, 32767), fs, 70)
-    sp_diff = world.cheaptrick(wav_hp, src["f0"], src["time_axis"], fs, fcfg.fftl)
-    ap_diff = world.d4c(wav_hp, src["f0"], src["time_axis"], fs, fcfg.fftl)
-    wav_f0 = world.synthesize(cvf0, sp_diff, ap_diff, fs,
-                              frame_period=fcfg.shiftms)
-    write_wav(os.path.join(outdir, f"{base}_DiffGVF0.wav"), fs, wav_f0)
-    lap("synthesis")
-
-    logging.info("decoded %s -> %s: %s", wav_file, outdir,
-                 {k: round(v, 3) for k, v in metrics.items()})
-    return metrics
+        logging.info("decoded %s -> %s: %s", wav_file, outdir,
+                     {k: round(v, 3) for k, v in metrics.items()})
+        return metrics
 
 
 def calc_cvgv(codec: Codec, exp: ExperimentConfig,

@@ -26,6 +26,7 @@ from scipy.interpolate import interp1d
 
 from ..dsp import sptk, world
 from ..utils.config import FeatureConfig
+from ..utils.profiling import span
 from ..utils.store import write_store
 from ..utils.wavio import low_pass_filter, read_wav, write_wav
 
@@ -52,11 +53,12 @@ def convert_continuos_f0(f0: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 def convert_f0(f0: np.ndarray, f0_mean_src: float, f0_std_src: float,
                f0_mean_trg: float, f0_std_trg: float) -> np.ndarray:
     """Log-Gaussian F0 transform (reference feature_extract_vc.py:116-121)."""
-    nonzero = f0 > 0
-    cvf0 = np.zeros(len(f0))
-    cvf0[nonzero] = np.exp((f0_std_trg / f0_std_src)
-                           * (np.log(f0[nonzero]) - f0_mean_src) + f0_mean_trg)
-    return cvf0
+    with span("vocoder.convert_f0"):
+        nonzero = f0 > 0
+        cvf0 = np.zeros(len(f0))
+        cvf0[nonzero] = np.exp((f0_std_trg / f0_std_src)
+                               * (np.log(f0[nonzero]) - f0_mean_src) + f0_mean_trg)
+        return cvf0
 
 
 def convert_linf0(f0: np.ndarray, f0_mean_src: float, f0_std_src: float,

@@ -25,6 +25,7 @@ from ..infer.logjoint import make_utterance_logjoint_batched
 from ..infer.nuts import NUTSConfig, nuts_sample  # noqa: F401  (the JAX module's surface)
 from ..infer.smc import SMCConfig, make_decoder_ssm, smc_filter
 from ..models.gru_vae import gru_rnn_apply
+from ..utils.profiling import fetch, span
 from ..utils.store import read_store, write_store
 from ..vi.train import CycleVAEConfig, CycleVAEParams
 
@@ -71,26 +72,28 @@ def posterior_convert_hmc(
     """
     dev = _device(params)
     T = feats.shape[0]
-    lj = make_utterance_logjoint_batched(
-        params, cfg, torch.as_tensor(np.asarray(feats, np.float32), device=dev),
-        _code(T, cfg.n_spk, enc_code_idx, dev), obs_scale=obs_scale)
-    z0 = torch.zeros((n_chains, T, cfg.lat_dim), device=dev)
-    samples, info = hmc_sample_batch(draws, lj, z0, hmc)
-    # samples: (n_samples, C, T, lat)
-    flat = samples.reshape(-1, T, cfg.lat_dim)
-    # posterior predictive: decode the last n_predictive draws (round-robin
-    # over chains) through the target-speaker code
-    pred = _decode_batch(params, cfg, _code(T, cfg.n_spk, dec_code_idx, dev),
-                         flat[-n_predictive:])
-    as_np = lambda t: t.cpu().numpy()
-    return {
-        "z_mean": as_np(flat.mean(dim=0)),
-        "z_std": as_np(flat.std(dim=0, correction=0)),
-        "cv_mcep_mean": as_np(pred.mean(dim=0)),
-        "cv_mcep_std": as_np(pred.std(dim=0, correction=0)),
-        "accept_prob": float(info["accept_prob"]),
-        "step_size": float(info["step_size"]),
-    }
+    with span("infer.posterior_convert_hmc"):
+        lj = make_utterance_logjoint_batched(
+            params, cfg, torch.as_tensor(np.asarray(feats, np.float32), device=dev),
+            _code(T, cfg.n_spk, enc_code_idx, dev), obs_scale=obs_scale)
+        z0 = torch.zeros((n_chains, T, cfg.lat_dim), device=dev)
+        samples, info = hmc_sample_batch(draws, lj, z0, hmc)
+        with span("infer.predictive"):
+            # samples: (n_samples, C, T, lat)
+            flat = samples.reshape(-1, T, cfg.lat_dim)
+            # posterior predictive: decode the last n_predictive draws
+            # (round-robin over chains) through the target-speaker code
+            pred = _decode_batch(params, cfg, _code(T, cfg.n_spk, dec_code_idx, dev),
+                                 flat[-n_predictive:])
+            as_np = lambda t: fetch(t).numpy()
+            return {
+                "z_mean": as_np(flat.mean(dim=0)),
+                "z_std": as_np(flat.std(dim=0, correction=0)),
+                "cv_mcep_mean": as_np(pred.mean(dim=0)),
+                "cv_mcep_std": as_np(pred.std(dim=0, correction=0)),
+                "accept_prob": float(fetch(info["accept_prob"])),
+                "step_size": float(fetch(info["step_size"])),
+            }
 
 
 def posterior_marginal_smc(

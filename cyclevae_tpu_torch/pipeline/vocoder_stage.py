@@ -35,6 +35,7 @@ from ..models.wavernn import (
 )
 from ..ops.cuda_wavernn import cuda_wavernn_generate
 from ..utils.device import resolve_device
+from ..utils.profiling import fetch, span
 from ..utils.tree import tree_map
 from ..utils.wavio import low_pass_filter, read_wav, write_wav
 from ..vi.checkpoint import load_checkpoint, restore_np_rng, save_checkpoint, to_torch
@@ -196,14 +197,19 @@ def synthesize_vocoder(params: Dict, cfg: WaveRNNConfig, feats: np.ndarray,
         code = np.zeros((feats.shape[0], cfg.n_spk), np.float32)
         code[:, spk_id] = 1.0
         feats = np.concatenate([feats, code], axis=1)
-    params = tree_map(lambda t: t.to(device), params)
-    cond = upsample_cond(params, cfg, torch.as_tensor(feats, device=device)[None])
-    if use_pallas:
-        idx = cuda_wavernn_generate(params, cfg, cond, seed=seed, temperature=temperature)[0]
-    else:
-        idx = generate_reference(params, cfg, cond[0], temperature,
-                                 generator=torch.Generator(device=device).manual_seed(seed))
-    return mulaw_decode(idx, cfg.n_classes).cpu().numpy()
+    with span("vocoder.synthesize"):
+        params = tree_map(lambda t: t.to(device), params)
+        with span("vocoder.upsample"):
+            cond = upsample_cond(params, cfg, torch.as_tensor(feats, device=device)[None])
+        with span("vocoder.generate"):
+            if use_pallas:
+                idx = cuda_wavernn_generate(params, cfg, cond, seed=seed,
+                                            temperature=temperature)[0]
+            else:
+                idx = generate_reference(
+                    params, cfg, cond[0], temperature,
+                    generator=torch.Generator(device=device).manual_seed(seed))
+        return fetch(mulaw_decode(idx, cfg.n_classes)).numpy()
 
 
 def converted_conditioning(src_feat: np.ndarray, cvmcep: np.ndarray,
@@ -217,15 +223,16 @@ def converted_conditioning(src_feat: np.ndarray, cvmcep: np.ndarray,
     cvmcep:   (T, mcep_dim+1) converted (typically GV-postfiltered) mceps.
     cvf0:     (T,) converted F0 in Hz (0 = unvoiced).
     """
-    uv, contf0 = convert_continuos_f0(np.array(cvf0))
-    cont_lpf = low_pass_filter(contf0, int(1.0 / (shiftms * 0.001)), cutoff=20)
-    # degenerate all-unvoiced trajectory: the continuous F0 is 0 everywhere
-    # and log() would poison the conditioning with -inf; floor at 1 Hz
-    # (uv = 0 already tells the vocoder these frames are unvoiced)
-    cont_lpf = np.maximum(cont_lpf, 1.0)
-    n_codeap = src_feat.shape[1] - 2 - cvmcep.shape[1]
-    return np.c_[uv[:, None], np.log(cont_lpf)[:, None],
-                 src_feat[:, 2:2 + n_codeap], cvmcep].astype(np.float32)
+    with span("vocoder.conditioning"):
+        uv, contf0 = convert_continuos_f0(np.array(cvf0))
+        cont_lpf = low_pass_filter(contf0, int(1.0 / (shiftms * 0.001)), cutoff=20)
+        # degenerate all-unvoiced trajectory: the continuous F0 is 0 everywhere
+        # and log() would poison the conditioning with -inf; floor at 1 Hz
+        # (uv = 0 already tells the vocoder these frames are unvoiced)
+        cont_lpf = np.maximum(cont_lpf, 1.0)
+        n_codeap = src_feat.shape[1] - 2 - cvmcep.shape[1]
+        return np.c_[uv[:, None], np.log(cont_lpf)[:, None],
+                     src_feat[:, 2:2 + n_codeap], cvmcep].astype(np.float32)
 
 
 def eval_copy_synthesis(params: Dict, cfg: WaveRNNConfig, exp,

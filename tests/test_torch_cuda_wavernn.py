@@ -217,3 +217,18 @@ def test_exact_tie_across_cluster_ranks_goes_to_the_lowest_class(cuda_device):
         assert len({40 // per, 100 // per, 250 // per}) > 1
     got = _hold(params, cfg, cond, 0, 0.0)
     assert bool((got == 40).all())
+
+
+@pytest.mark.cuda
+def test_mulaw_decode_does_not_wait_for_the_stream(cuda_device):
+    """Decoding K4's samples enqueues behind K4 and returns: the host waits
+    only in the copy to the host that follows (``profiling.fetch``)."""
+    from cyclevae_tpu_torch.models.wavernn import mulaw_decode, mulaw_encode
+    idx = torch.randint(0, 256, (4000,), dtype=torch.int32, device=cuda_device)
+    mulaw_decode(idx, 256)       # the first call loads its kernels, which may wait
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)         # ~0.5 s of a busy stream
+    y = mulaw_decode(idx, 256)
+    assert not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert torch.equal(mulaw_encode(y, 256), idx)

@@ -21,6 +21,7 @@ from cyclevae_tpu.vi.train import init_cyclevae as jax_init
 from cyclevae_tpu_torch.interop import params_from_jax
 from cyclevae_tpu_torch.pipeline import decode as td
 from cyclevae_tpu_torch.pipeline import features as tf
+from cyclevae_tpu_torch.utils import profiling
 from cyclevae_tpu_torch.utils.config import ExperimentConfig
 from cyclevae_tpu_torch.utils.wavio import write_wav
 
@@ -148,6 +149,17 @@ def test_latent_dtw_metrics_equal_to_jax_package(pair):
     assert got == want and sorted(got) == ["lat_cos", "lat_rmse"]
 
 
+def _stages(spans):
+    """The stages recorded under one ``stage6.decode_pair`` span, in order;
+    each lies inside it and after the one before."""
+    root, = [s for s in spans if s.name == "stage6.decode_pair"]
+    stages = sorted((s for s in spans if s.parent == root.id), key=lambda s: s.start_ns)
+    assert all(s.name.startswith("stage6.") and s.request == root.request for s in stages)
+    assert all(root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns for s in stages)
+    assert all(a.end_ns <= b.start_ns for a, b in zip(stages, stages[1:]))
+    return [s.name.split(".", 1)[1] for s in stages]
+
+
 def test_host_tail_of_decode_pair_equal_to_jax_package(pair, tmp_path, monkeypatch):
     """Both packages' device phase patched to return the same arrays: the
     metrics are equal and the eight wav files identical."""
@@ -157,11 +169,11 @@ def test_host_tail_of_decode_pair_equal_to_jax_package(pair, tmp_path, monkeypat
     codec = SimpleNamespace(cfg=SimpleNamespace(lat_dim=32))
     want = jd.decode_pair(codec, JaxExperiment(), None, **_args(pair, tmp_path / "jax"),
                           analysis=pair.ana)
-    timings = {}
-    got = td.decode_pair(codec, ExperimentConfig(), None, **_args(pair, tmp_path / "port"),
-                         analysis=pair.ana, timings=timings)
+    with profiling.recording():
+        got = td.decode_pair(codec, ExperimentConfig(), None, **_args(pair, tmp_path / "port"),
+                             analysis=pair.ana)
     assert got == want and sorted(got) == sorted(METRICS)
-    assert sorted(timings) == ["device", "metrics", "synthesis"]
+    assert _stages(profiling.spans()) == ["device", "metrics", "synthesis"]
     w_jax, w_port = _wavs(tmp_path / "jax", "src"), _wavs(tmp_path / "port", "src")
     for s in SUFFIXES:
         assert w_port[s][0] == w_jax[s][0] == FS
@@ -195,11 +207,11 @@ def test_decode_pair_end_to_end_matches_jax(pair, tmp_path, monkeypatch):
 
     monkeypatch.setattr(jd, "device_decode_pair", jax_device_decode_pair)
     want = jd.decode_pair(jc, JaxExperiment(), None, **_args(pair, tmp_path / "jax"))
-    timings = {}
-    got = td.decode_pair(tc, ExperimentConfig(), None, **_args(pair, tmp_path / "port"),
-                         eps=eps, timings=timings)
+    with profiling.recording():
+        got = td.decode_pair(tc, ExperimentConfig(), None, **_args(pair, tmp_path / "port"),
+                             eps=eps)
     assert sorted(got) == sorted(METRICS)
-    assert sorted(timings) == ["analysis", "device", "metrics", "synthesis"]
+    assert _stages(profiling.spans()) == ["analysis", "device", "metrics", "synthesis"]
     for k in METRICS:
         assert np.isfinite(got[k])
         np.testing.assert_allclose(got[k], want[k], rtol=1e-4, err_msg=k)
