@@ -67,7 +67,7 @@ Phases, one line or more each; any failure exits non-zero:
               then stages i and v: HMC over the source's eval latents (K2,
               K3; K1 for the posterior predictive) and the hu896 WaveRNN for
               2 epochs (a cuDNN GRU) with copy synthesis (K4), their launch
-              counts (per HMC step 2L + 2 K2 and 2L K3), times and
+              counts (K2 = K3 = 1 + L x HMC steps a run), times and
               artifacts; then the teacher-forced WaveRNN loss and gradient
               on one batch of the recipe's clips, cuDNN against the plain
               loop on the card;
@@ -1499,8 +1499,9 @@ def phase_recipe(dev, tmp: str):
     # 4 AR-GRU calls per cycle: K2 and K3 per valid segment of a train
     # step, K1 per eval batch (one source and one target batch an epoch);
     # stage 5: 2 K1 launches per training utterance; stage 6: 2 per pair;
-    # stage i per utterance and HMC step (2L + 2) K2 and 2L K3, and one K1
-    # for the posterior predictive; stage v one K4 per eval utterance,
+    # stage i per utterance 1 + L x HMC steps K2 and as many K3 (the start's
+    # evaluation, then one a leapfrog), and one K1 for the posterior
+    # predictive; stage v one K4 per eval utterance,
     # one cuDNN teacher-forced call per train step, no plain loop
     want = {st: dict(K1=0, K2=0, K3=0, K4=0, scan=0, tf_plain=0, tf_cudnn=0)
             for st in RECIPE_STAGES}
@@ -1508,8 +1509,8 @@ def phase_recipe(dev, tmp: str):
     want["4"].update(K1=RECIPE_EPOCHS * 2 * 4 * cfg.n_cyc, K2=want_k2, K3=want_k2)
     want["5"]["K1"] = 2 * 2 * RECIPE_N_TRAIN
     want["6"]["K1"] = 2 * len(eval_wavs[src])
-    want["i"].update(K1=n_post, K2=n_post * hmc_steps * (2 * hmc_cfg.n_leapfrog + 2),
-                     K3=n_post * hmc_steps * 2 * hmc_cfg.n_leapfrog)
+    hmc_evals = n_post * (1 + hmc_steps * hmc_cfg.n_leapfrog)
+    want["i"].update(K1=n_post, K2=hmc_evals, K3=hmc_evals)
     want["v"].update(K4=len(eval_wavs[trg][:5]), tf_cudnn=RECIPE_VOC_EPOCHS * voc_steps)
     launches_ok = want_k2 > 0 and all(r[st][k] == v for st, w in want.items()
                                       for k, v in w.items())
@@ -1723,7 +1724,8 @@ def phase_infer(dev):
     acc_k, acc_p = moved(s_k), moved(s_p)
     z_rel = rel_l2(s_k, s_p)
     steps = 1 + hcfg.n_samples
-    want_n = {"K1": 0, "K2": steps * (2 * hcfg.n_leapfrog + 2), "K3": steps * 2 * hcfg.n_leapfrog}
+    evals = 1 + steps * hcfg.n_leapfrog
+    want_n = {"K1": 0, "K2": evals, "K3": evals}
     good = bool(torch.equal(acc_k, acc_p)) and z_rel < HMC_Z_REL and n == want_n
     ok &= good
     log(f"[infer] HMC C={C}, {steps} steps of {hcfg.n_leapfrog} leapfrogs: kernel route "
@@ -2202,8 +2204,8 @@ def phase_tools(dev, tmp: str):
     log(f"[tools] bench: measured bf16 peak {res['measured_bf16_peak_tflops']} TFLOP/s; "
         f"{sec:.1f} s")
 
-    # ---- HMC chains: (2L + 2) K2 and 2L K3 calls an iteration, each in blocks ----
-    L = 8
+    # ---- HMC chains: 1 + L x iterations K2 and K3 calls a run, each in blocks ----
+    L, iters = 8, 2 * TOOLS_ITERS
     res, sec = timed_main(bench_hmc_chains, [
         "--chains", *map(str, TOOLS_HMC_CHAINS), "--iters", str(TOOLS_ITERS), "--warmup",
         str(TOOLS_ITERS), "--adapt-mass", "on", "--out", os.path.join(out, "hmc.json")])
@@ -2211,7 +2213,8 @@ def phase_tools(dev, tmp: str):
         wdt = dtypes[mode]
         for r in rows:
             C = r["chains"]
-            want = ((2 * L + 2) * blocks("k2", C, 50, wdt), 2 * L * blocks("k3", C, 50, wdt))
+            want = tuple(blocks(kind, C, 50, wdt) * (1 + L * iters) / iters
+                         for kind in ("k2", "k3"))
             got = (r["k2_launches_per_iter"], r["k3_launches_per_iter"])
             check(f"hmc {mode} C={C}", r["finite"] and got == want,
                   f"{r['samples_per_sec_per_chip']} samples/s, {r['iter_ms']:.1f} ms an "
@@ -2251,7 +2254,7 @@ def phase_tools(dev, tmp: str):
         "--chains", "32", "--iters", str(TOOLS_ITERS), "--warmup", str(TOOLS_ITERS),
         "--points", "8,0.9,on", "16,0.8,on", "--out", os.path.join(out, "trajlen.json")])
     check("trajlen 2 points", res["n_faulting_points"] == 0 and all(
-        r["k2_launches_per_iter"] == 2 * r["n_leapfrog"] + 2 for r in res["rows"]),
+        r["k2_launches_per_iter"] == (1 + r["n_leapfrog"] * iters) / iters for r in res["rows"]),
         "; ".join(f"L={r['n_leapfrog']} ESS/s {r['ess_per_sec_per_chip']} K2 an iteration "
                   f"{r['k2_launches_per_iter']}" for r in res["rows"] if not r.get("fault"))
         + f"; {sec:.1f} s")
@@ -2260,9 +2263,11 @@ def phase_tools(dev, tmp: str):
     res, sec = timed_main(bench_scaling, ["--ranks", "1", "2",
                                           "--out", os.path.join(out, "scaling.json")])
     hmc = bench_scaling.HMC
-    iters = 2 * (hmc["n_warmup"] + hmc["n_samples"])        # the warm and the timed run
-    chain_iters = iters * (2 + 2 + 1 + 2)      # fixed 2 chains x2 points, weak 1 and 2 chains
-    want = {"K2": chain_iters * (2 * hmc["n_leapfrog"] + 2), "K3": chain_iters * 2 * hmc["n_leapfrog"]}
+    # a chain's run: one evaluation at its start, one a leapfrog; two runs a
+    # point (the warm and the timed), fixed 2 chains x2 points, weak 1 and 2 chains
+    chain_runs = 2 * (2 + 2 + 1 + 2)
+    evals = chain_runs * (1 + hmc["n_leapfrog"] * (hmc["n_warmup"] + hmc["n_samples"]))
+    want = {"K2": evals, "K3": evals}
     scaling_launches = res["launches"]
     check("scaling 1-2 ranks", {k: scaling_launches.get(k) for k in want} == want,
           f"fixed {res['fixed_work']}, weak {res['weak_scaling']}; launches in the ranks "

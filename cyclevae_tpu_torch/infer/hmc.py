@@ -10,8 +10,12 @@ stays on the device: the accept test is a per-chain ``torch.where``, the
 adaptation statistics are tensors, so a step never waits for the host (but,
 sharded, for the gather of the adaptation statistics).
 
-A step with ``n_leapfrog`` = L makes JAX's count of evaluations: 2L
-gradients (each a forward and a backward) and 2 energies (forwards).
+The log-joint's value and gradient at each chain's current point are
+carried from the evaluation that reached it (kept on a reject), so a
+transition with ``n_leapfrog`` = L makes L value-and-gradient evaluations
+(each a forward and a backward), one at each leapfrog's end point, and a
+run one more, at its start.  The JAX package's sampler recomputes them: 2L
+gradients and 2 energies a transition, the same values.
 """
 
 from __future__ import annotations
@@ -35,14 +39,20 @@ class HMCConfig(NamedTuple):
     adapt_mass: bool = True
 
 
-def _leapfrog(grad_fn, z, p, step_size, n_steps, inv_mass):
-    """``n_steps`` leapfrog steps, two gradient evaluations each (as the JAX
-    package's scan body)."""
+def _leapfrog(value_and_grad_fn, z, p, step_size, n_steps, inv_mass, at):
+    """``n_steps`` leapfrog steps from (z, p); ``at`` holds [value,
+    gradient] of the log-joint at z.  Each step makes one value-and-gradient
+    evaluation, at its end point: its gradient closes this step's kick and
+    opens the next one's.  Returns the end's (z, p) and leaves its value and
+    gradient in ``at``: (z, p) alone is the shape that the benchmark's
+    planted fault ``benchmark/faults.py`` ``hmc_state_unchanged`` returns."""
+    value, grad = at
     for _ in range(n_steps):
-        p_half = p + 0.5 * step_size * grad_fn(z)
-        z_new = z + step_size * inv_mass * p_half
-        p = p_half + 0.5 * step_size * grad_fn(z_new)
-        z = z_new
+        p_half = p + 0.5 * step_size * grad
+        z = z + step_size * inv_mass * p_half
+        value, grad = value_and_grad_fn(z)
+        p = p_half + 0.5 * step_size * grad
+    at[:] = value, grad
     return z, p
 
 
@@ -63,11 +73,7 @@ def _run(draws: Draws, logjoint_batch: Callable[[torch.Tensor], torch.Tensor],
     C = z0.shape[0]
     axes = tuple(range(1, z0.ndim))
     bshape = (C,) + (1,) * len(axes)
-    grad_fn = lambda z: value_and_grad(logjoint_batch, z)[1]
-
-    def energy(z):
-        with torch.no_grad():
-            return logjoint_batch(z)
+    vg = lambda z: value_and_grad(logjoint_batch, z)
 
     def kinetic(p, inv_mass):
         # one sum per chain: on the card a sum over (C, ...) along the chain
@@ -83,44 +89,53 @@ def _run(draws: Draws, logjoint_batch: Callable[[torch.Tensor], torch.Tensor],
         # the single-process mean of the same values, bit for bit)
         return (x if mesh is None else mesh.all_gather(x)).mean(dim=0)
 
-    def one_step(z, step_size, inv_mass):
+    def one_step(state, step_size, inv_mass):
+        # state: each chain's point z and the log-joint's value and gradient there
+        z, v, g = state
         p = draws.momentum(z.shape) / torch.sqrt(inv_mass)
-        h0 = -energy(z) + kinetic(p, inv_mass)
-        z_new, p_new = _leapfrog(grad_fn, z, p, per_chain(step_size), cfg.n_leapfrog,
-                                 inv_mass)
-        h1 = -energy(z_new) + kinetic(p_new, inv_mass)
+        h0 = -v + kinetic(p, inv_mass)
+        end = [v, g]
+        z_new, p_new = _leapfrog(vg, z, p, per_chain(step_size), cfg.n_leapfrog, inv_mass,
+                                 end)
+        v_new, g_new = end
+        h1 = -v_new + kinetic(p_new, inv_mass)
         log_accept = torch.clamp(h0 - h1, max=0.0)                   # (C,)
         accept_prob = torch.exp(torch.where(torch.isfinite(log_accept), log_accept,
                                             torch.full_like(log_accept, -torch.inf)))
         accept = draws.accept((C,)) < accept_prob
-        return torch.where(accept.reshape(bshape), z_new, z), accept_prob
+        keep = accept.reshape(bshape)
+        return (torch.where(keep, z_new, z), torch.where(accept, v_new, v),
+                torch.where(keep, g_new, g)), accept_prob
 
-    def warmup(z, step_size, inv_mass, n):
+    def warmup(state, step_size, inv_mass, n):
         with span("hmc.warmup"):
+            z = state[0]
             da = da_init(step_size, device=z.device)
             w_sum, w2_sum, accs = torch.zeros_like(z), torch.zeros_like(z), []
             for _ in range(n):
-                z, acc = one_step(z, torch.exp(da.log_step), inv_mass)
+                state, acc = one_step(state, torch.exp(da.log_step), inv_mass)
+                z = state[0]
                 da = da_update(da, chain_mean(acc) if shared else acc, target=cfg.target_accept)
                 w_sum, w2_sum = w_sum + z, w2_sum + z ** 2
                 accs.append(acc)
             var = w2_sum / n - (w_sum / n) ** 2 if n else torch.zeros_like(z)
-            return z, da, (chain_mean(var) if shared else var), accs
+            return state, da, (chain_mean(var) if shared else var), accs
 
     init_step = torch.full((C,) if not shared else (), cfg.step_size, device=z0.device)
     inv_mass0 = torch.ones_like(z0[0] if shared else z0)
+    state = (z0, *vg(z0))           # the run's one evaluation outside a leapfrog
     if cfg.adapt_mass and windowed:
         # Windowed warmup (Stan-style): phase 1 dual-averages the step size
         # under the identity metric while collecting posterior moments; the
         # diagonal inverse mass is set from the pooled cross-chain variance;
         # phase 2 then re-adapts the step size under the new metric
         n1 = cfg.n_warmup // 2
-        z, da, var, acc1 = warmup(z0, init_step, inv_mass0, n1)
+        state, da, var, acc1 = warmup(state, init_step, inv_mass0, n1)
         inv_mass = torch.clamp(var, min=1e-3)
-        z, da, _, acc2 = warmup(z, da_final(da), inv_mass, cfg.n_warmup - n1)
+        state, da, _, acc2 = warmup(state, da_final(da), inv_mass, cfg.n_warmup - n1)
         warm_acc = acc1 + acc2
     else:
-        z, da, var, warm_acc = warmup(z0, init_step, inv_mass0, cfg.n_warmup)
+        state, da, var, warm_acc = warmup(state, init_step, inv_mass0, cfg.n_warmup)
         # inv mass = posterior variance
         inv_mass = torch.clamp(var, min=1e-3) if cfg.adapt_mass else inv_mass0
     step_size = da_final(da)
@@ -128,8 +143,8 @@ def _run(draws: Draws, logjoint_batch: Callable[[torch.Tensor], torch.Tensor],
     samples, accs = [], []
     with span("hmc.sample"):
         for _ in range(cfg.n_samples):
-            z, acc = one_step(z, step_size, inv_mass)
-            samples.append(z)
+            state, acc = one_step(state, step_size, inv_mass)
+            samples.append(state[0])
             accs.append(acc)
     stack = lambda xs: torch.stack(xs) if xs else torch.zeros((0, C), device=z0.device)
     return torch.stack(samples), stack(warm_acc), stack(accs), step_size, inv_mass

@@ -6,12 +6,14 @@ reports samples/s at each point on the card.
 Workload: per-utterance latent posterior inference against the frozen
 flagship (hu=1024) decoder, ``infer.make_utterance_logjoint_batched`` with
 chains riding the decoder's batch axis, z of shape (C, T, 32), T=256.  Each
-HMC iteration costs ``2*n_leapfrog`` log-joint gradients (K2 forward, K3
-backward, through the decoder's AR recurrence) plus 2 log-joint values (K2);
-every iteration (warm-up or sampling) costs the same, so samples/s = C /
-per-iteration time.  A chain count past one kernel launch's rows runs in row
-blocks (``ops/cuda_gru.py``): each row reports its K2 and K3 launches per
-iteration, which shows where the blocks begin.
+HMC iteration costs ``n_leapfrog`` log-joint values and gradients (K2
+forward, K3 backward, through the decoder's AR recurrence), one at each
+leapfrog's end point (the sampler carries each chain's value and gradient),
+and a run one more at its start; every iteration (warm-up or sampling)
+costs the same, so samples/s = C / per-iteration time.  A chain count past
+one kernel launch's rows runs in row blocks (``ops/cuda_gru.py``): each row
+reports its K2 and K3 launches per iteration (the run's first evaluation
+spread over its iterations), which shows where the blocks begin.
 
 Modes: ``f32`` takes K2/K3 with float32 weights (the JAX tool's ``f32`` is
 its XLA scan; the port's configurations default to the kernel route),
@@ -144,7 +146,7 @@ def main(argv=None) -> dict:
                 per_iter = dt / total_iters
                 sps = C / per_iter
                 ef = ess_fraction(trace)
-                grad_evals = C * 2 * args.n_leapfrog / per_iter
+                grad_evals = C * args.n_leapfrog / per_iter
                 rows.append({"chains": C, "adapt_mass": adapt_mass,
                              "iter_ms": per_iter * 1e3,
                              "samples_per_sec_per_chip": round(sps, 1),

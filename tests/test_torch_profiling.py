@@ -243,10 +243,12 @@ def test_a_conversion_request_waits_on_the_device_three_times(tiny_cyclevae):
     assert parent_of("codec.decode") == [dec.id]
 
 
-def test_hmc_counts_2L_plus_2_logjoint_evaluations_a_transition(tiny_cyclevae):
-    """``posterior_convert_hmc`` on the tiny CPU log-joint: (2L + 2) batched
-    evaluations a transition, warm-up and sampling alike, and its spans:
-    two warm-up phases, the sampling and the predictive under one request."""
+def test_hmc_counts_L_logjoint_evaluations_a_transition_plus_one_a_run(tiny_cyclevae):
+    """``posterior_convert_hmc`` on the tiny CPU log-joint: L batched
+    evaluations a transition, warm-up and sampling alike, and one at the
+    run's start (each point's value and gradient are carried), and its
+    spans: two warm-up phases, the sampling and the predictive under one
+    request."""
     from cyclevae_tpu_torch.infer import Draws, HMCConfig
     from cyclevae_tpu_torch.pipeline.infer_stage import posterior_convert_hmc
     cfg, params = tiny_cyclevae
@@ -257,7 +259,7 @@ def test_hmc_counts_2L_plus_2_logjoint_evaluations_a_transition(tiny_cyclevae):
                                         Draws(torch.Generator().manual_seed(3)), n_chains=2,
                                         hmc=HMCConfig(0.05, L, warm, n), n_predictive=2)
         assert out["cv_mcep_mean"].shape == (6, 50)
-        assert profiling.counters() == {"logjoint.evals": (2 * L + 2) * (warm + n),
+        assert profiling.counters() == {"logjoint.evals": 1 + L * (warm + n),
                                         "device_waits": 6}
         got = _by_name(profiling.spans())
         (root,) = got["infer.posterior_convert_hmc"]
