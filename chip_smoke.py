@@ -25,7 +25,10 @@ Phases, one line or more each; any failure exits non-zero:
               at B=1 and B=4, greedy and sampled, held index by index by the
               near-tie rule, with its plan (grid, units per block, cluster
               size, f stage, shared bytes), and its sampled draws against the
-              categorical distribution they follow;
+              categorical distribution they follow; beside it K4's dual
+              instantiation (the published WaveRNN-896's coarse and fine
+              softmax over 16-bit audio, 448 + 448 units) at the same T, B,
+              greedy and sampled, held the same way, one launch a call;
   3. main     the stage-6 conversion path of the flagship hu1024 CycleVAE
               (random weights from a seed, stats baked in): 4 requests
               through ``Codec`` + ``device_decode_pair`` per dtype, with the
@@ -491,6 +494,19 @@ def wavernn_bound_ms(B: int, T: int, cfg):
     return elementwise_bound_ms(ops, nbytes, torch.float32)
 
 
+def wavernn_dual_bound_ms(B: int, T: int, cfg):
+    """K4's dual instantiation: operations and bytes as
+    ``benchmark/work/wavernn_dual.py`` counts them: the recurrent product
+    and each head's two layers over its half; the conditioning gates, the
+    weights and the samples moved once."""
+    H, K = cfg.hidden_units, cfg.n_classes
+    Hh = H // 2
+    ops = 2 * T * B * (3 * H * H + 2 * Hh * Hh + 2 * K * Hh)
+    weights = 3 * H * 3 + 3 * H * H + 3 * H + 2 * (Hh * Hh + Hh + K * Hh + K)
+    nbytes = T * B * 3 * H * 4 + weights * 4 + T * B * 4
+    return elementwise_bound_ms(ops, nbytes, torch.float32)
+
+
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
@@ -698,6 +714,23 @@ def _vocoder(dev, seed: int, n_spk: int = 0):
     return cfg, params
 
 
+def _vocoder_dual(dev, seed: int):
+    """The published WaveRNN-896 (``WaveRNNConfig(dual=True)``: a coarse and
+    a fine 8-bit softmax over 16-bit audio) with random weights from
+    ``seed``, the masked input entries and every bias non-zero."""
+    from cyclevae_tpu_torch.models.wavernn import WaveRNNConfig, init_wavernn
+
+    cfg = WaveRNNConfig(dual=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_wavernn(gen, cfg)
+    params["gru"]["w_ih"].uniform_(-0.05, 0.05, generator=gen)   # the masked entries too
+    for k in ("b_ih", "b_hh"):
+        params["gru"][k].uniform_(-0.5, 0.5, generator=gen)
+    for k in ("O1", "O2", "O3", "O4"):
+        params[k]["b"].uniform_(-0.05, 0.05, generator=gen)
+    return cfg, params
+
+
 def phase_vocoder_kernel(dev):
     """K4 against its plain version at the sampler's shapes, and its sampled
     draws against the distribution they follow."""
@@ -768,6 +801,60 @@ def phase_vocoder_kernel(dev):
         f"{VOC_TEMPERATURE}, chi-square {chi2:.1f} over {int(keep.sum())} classes (< {limit:.1f}, "
         f"the 0.999 quantile); hot class (logit 10) in {frac_hot:.4f} of draws (> 0.9) "
         f"{'ok' if dist_ok else 'FAIL'}")
+    return results, ok
+
+
+def phase_vocoder_dual_kernel(dev):
+    """K4's dual instantiation against its plain version at the published
+    widths (H = 896 in halves of 448, two 256-way heads), T = 4,000, B = 1
+    and 4, greedy and sampled: its samples held by the near-tie rule of the
+    head that differs, its launches, times and bound."""
+    from cyclevae_tpu_torch.models.wavernn import pcm16_decode
+    from cyclevae_tpu_torch.ops import _build
+    from cyclevae_tpu_torch.ops.cuda_wavernn import (NEAR_TIE_REL, cuda_wavernn_generate,
+                                                     first_divergence, plan,
+                                                     wavernn_generate_reference)
+
+    cfg, params = _vocoder_dual(dev, SEED + 40)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    results, ok = {}, True
+    for B in (1, 4):
+        cond = torch.tanh(torch.randn((B, T_VOC, cfg.cond_dim), generator=gen, device=dev))
+        grid, units, cluster, stage_rows, smem = plan(_build.load("wavernn"), B, cfg.hidden_units,
+                                                      cfg.n_classes, 0, dual=True)
+        pl = dict(grid=grid, units=units, cluster=cluster, stage_rows=stage_rows, smem=smem)
+        for temp in (0.0, VOC_TEMPERATURE):
+            args = (params, cfg, cond, SEED + 40 + B, temp)
+            before = cuda_wavernn_generate.launches
+            got = cuda_wavernn_generate(*args)
+            launches = cuda_wavernn_generate.launches - before
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            want, gap, scale = wavernn_generate_reference(*args, margins=True)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            equal = bool(torch.equal(got, want))
+            steps, match = first_divergence(got, want, gap, scale)
+            match &= launches == 1
+            err = float((pcm16_decode(got) - pcm16_decode(want)).abs().max())
+            ms = cuda_ms(lambda: cuda_wavernn_generate(*args), iters=3)
+            bound_ms, bound_by = wavernn_dual_bound_ms(B, T_VOC, cfg)
+            key = f"B{B}/{'greedy' if temp == 0 else f'sampled{temp}'}"
+            results[key] = dict(B=B, T=T_VOC, temperature=temp, first_divergence=steps,
+                                equal=equal, max_abs_err=err, ms=ms,
+                                us_per_sample=ms * 1e3 / T_VOC, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by, plan=pl,
+                                launches_per_call=launches, ok=match)
+            ok &= match
+            first = ", ".join("none" if t < 0 else str(t) for t in steps)
+            log(f"[kernels] wavernn_generate dual {key} H={cfg.hidden_units} (2 x "
+                f"{cfg.hidden_units // 2}) K=2x{cfg.n_classes} T={T_VOC} plan: grid {grid} blocks "
+                f"x {units} units in clusters of {cluster}, shared {smem} bytes; {launches} "
+                f"launch(es); equal {equal}, first divergence per row: {first} (near-tie rule "
+                f"{NEAR_TIE_REL}) max_abs (decoded) {err:.3e} kernel={ms:.3f} ms ({ms * 1e3 / T_VOC:.2f} us/sample) "
+                f"plain={plain_ms:.1f} ms bound={bound_ms:.4f} ms ({bound_by}) "
+                f"{'ok' if match else 'FAIL'}")
     return results, ok
 
 
@@ -990,8 +1077,11 @@ def phase_train(dev):
 
 def phase_vocode(dev):
     """Neural-vocoder synthesis of converted speech, as
-    ``tools/vocode_converted.py`` drives it."""
-    from cyclevae_tpu_torch.models.wavernn import mulaw_decode, n_samples_for, upsample_cond
+    ``tools/vocode_converted.py`` drives it: with the mu-law WaveRNN (one and
+    two speakers) and with the published dual WaveRNN-896 (16-bit audio).
+    Returns (ok, mu-law K4 launches, dual launches) of the main path."""
+    from cyclevae_tpu_torch.models.wavernn import (mulaw_decode, n_samples_for, pcm16_encode,
+                                                   upsample_cond)
     from cyclevae_tpu_torch.ops.cuda_gru import cuda_gru_ar
     from cyclevae_tpu_torch.ops.cuda_wavernn import (NEAR_TIE_REL, cuda_wavernn_generate,
                                                      first_divergence,
@@ -1011,6 +1101,7 @@ def phase_vocode(dev):
                                 device=dev), cfg, device=dev)
     vcfg, vparams = _vocoder(dev, SEED + 5)
     vcfg2, vparams2 = _vocoder(dev, SEED + 6, n_spk=2)
+    vcfg_d, vparams_d = _vocoder_dual(dev, SEED + 7)
     # GV and log-F0 statistics of the synthetic speakers (the recipe reads
     # them from stage 2's HDF5 stats)
     f0 = lambda f: np.where(f[:, 0] > 0.5, np.exp(f[:, 1]), 0.0)
@@ -1022,6 +1113,7 @@ def phase_vocode(dev):
     synthesize_vocoder(vparams, vcfg, warm, seed=0, temperature=VOC_TEMPERATURE, device=dev)
     synthesize_vocoder(vparams2, vcfg2, warm, seed=0, temperature=VOC_TEMPERATURE, spk_id=1,
                        device=dev)
+    synthesize_vocoder(vparams_d, vcfg_d, warm, seed=0, temperature=VOC_TEMPERATURE, device=dev)
 
     # ---- the main path: counts set to 0 just before, read just after ----
     cuda_gru_ar.launches = cuda_wavernn_generate.launches = 0
@@ -1043,7 +1135,8 @@ def phase_vocode(dev):
         SHIFT_MS) for (src, _), c in zip(pairs, cvmceps)]
     jobs = [(f"req{i}", vparams, vcfg, f, i, None) for i, f in enumerate(feats_cv)]
     jobs.append(("req0/n_spk2", vparams2, vcfg2, feats_cv[0], 0, 1))
-    ok, waves = True, {}
+    jobs += [(f"req{i}/dual", vparams_d, vcfg_d, f, i, None) for i, f in enumerate(feats_cv)]
+    ok, waves, k4, k4_dual = True, {}, 0, 0
     for name, params, vc, feat, seed, spk in jobs:
         before = cuda_wavernn_generate.launches
         t0 = time.perf_counter()
@@ -1054,30 +1147,45 @@ def phase_vocode(dev):
         n = n_samples_for(vc, len(feat))
         good = (y.shape == (n,) and bool(np.isfinite(y).all()) and float(np.abs(y).max()) <= 1.0
                 and launches == 1 and np.isfinite(feat).all() and len(np.unique(y)) > 1)
+        if vc.dual:   # 16-bit: every sample a whole number of 2^-15 in [-1, 1)
+            s16 = y.astype(np.float64) * 32768.0
+            good &= bool((s16 == np.round(s16)).all() and s16.min() >= -32768 and s16.max() <= 32767)
+            k4_dual += launches
+        else:
+            k4 += launches
         ok &= good
         waves[name] = y
-        log(f"[vocode] {name}: {len(feat)} frames -> {n} samples (n_spk {vc.n_spk}); vocoder "
+        log(f"[vocode] {name}: {len(feat)} frames -> {n} samples (n_spk {vc.n_spk}, "
+            f"{'dual 16-bit' if vc.dual else 'mu-law'}); vocoder "
             f"{sec * 1e3:.1f} ms, {n / sec:.0f} samples/s, real-time factor "
             f"{sec / (n / SAMPLE_RATE):.4f}; K4 launches {launches} (want 1); "
-            f"range [{float(y.min()):.3f}, {float(y.max()):.3f}] {'ok' if good else 'FAIL'}")
-    k1, k4 = cuda_gru_ar.launches, cuda_wavernn_generate.launches
-    ok &= k1 == 2 * len(pairs) and k4 == len(jobs)
-    log(f"[vocode] main path: K1 {k1} (want {2 * len(pairs)}), K4 {k4} (want {len(jobs)}) "
-        "launches")
+            f"range [{float(y.min()):.5f}, {float(y.max()):.5f}] {'ok' if good else 'FAIL'}")
+    k1, n_dual = cuda_gru_ar.launches, sum(vc.dual for _, _, vc, _, _, _ in jobs)
+    ok &= (k1 == 2 * len(pairs) and k4 == len(jobs) - n_dual and k4_dual == n_dual
+           and cuda_wavernn_generate.launches == len(jobs))
+    log(f"[vocode] main path: K1 {k1} (want {2 * len(pairs)}), K4 {k4} (want "
+        f"{len(jobs) - n_dual}), K4 dual {k4_dual} (want {n_dual}) launches")
 
     # ---- the first T_VOC samples of request 0 against the plain sampler ----
     with torch.inference_mode():
         cond = upsample_cond(vparams, vcfg, torch.as_tensor(feats_cv[0], device=dev)[None])
         want, gap, scale = wavernn_generate_reference(vparams, vcfg, cond[:, :T_VOC], 0,
                                                       VOC_TEMPERATURE, margins=True)
+        cond_d = upsample_cond(vparams_d, vcfg_d, torch.as_tensor(feats_cv[0], device=dev)[None])
+        want_d, gap_d, scale_d = wavernn_generate_reference(vparams_d, vcfg_d, cond_d[:, :T_VOC],
+                                                            0, VOC_TEMPERATURE, margins=True)
     got = torch.as_tensor(waves["req0"][:T_VOC])[None]
     steps, match = first_divergence(got, mulaw_decode(want).cpu(), gap, scale)
-    ok &= match
-    log(f"[vocode] req0's first {T_VOC} samples against the plain sampler: first divergence "
-        f"{'none' if steps[0] < 0 else steps[0]} (near-tie rule {NEAR_TIE_REL}) "
-        f"{'ok' if match else 'FAIL'}")
+    # the dual rendering's 16-bit samples, back to u16 = c * 256 + f (exact)
+    got_d = pcm16_encode(torch.as_tensor(waves["req0/dual"][:T_VOC]))[None]
+    steps_d, match_d = first_divergence(got_d, want_d, gap_d, scale_d)
+    ok &= match and match_d
+    for what, st, m in (("mu-law", steps, match), ("dual", steps_d, match_d)):
+        log(f"[vocode] req0's first {T_VOC} samples ({what}) against the plain sampler: first "
+            f"divergence {'none' if st[0] < 0 else st[0]} (near-tie rule {NEAR_TIE_REL}) "
+            f"{'ok' if m else 'FAIL'}")
     log(f"[vocode] {'ok' if ok else 'FAIL'}")
-    return ok, k4
+    return ok, k4, k4_dual
 
 
 def speechlike_wav(f0: float, n: int, seed: int, fs: int = SAMPLE_RATE) -> np.ndarray:
@@ -2476,8 +2584,10 @@ def phase_parallel(dev):
     want_seg = 8 * n_segs            # 8 K2 + 8 K3 per valid segment, per rank
     steps = DP_HMC[2] + DP_HMC[3]
     c_local = DP_CHAINS // DP_RANKS
-    want_hmc = {"K1": 0, "K2": steps * c_local * (2 * DP_HMC[1] + 2),
-                "K3": steps * c_local * 2 * DP_HMC[1]}
+    # a run per local chain: 1 + L x steps K2 and as many K3 (the start's
+    # evaluation, then one at each leapfrog's end point)
+    evals = c_local * (1 + DP_HMC[1] * steps)
+    want_hmc = {"K1": 0, "K2": evals, "K3": evals}
     launches = {"K2": 0, "K3": 0}
     for r, res in enumerate(gloo):
         t = res["train"][0]
@@ -2583,9 +2693,10 @@ def main() -> int:
     kern = phase_kernels(dev)
     train_kern = phase_train_kernels(dev)
     voc_kern, voc_kern_ok = phase_vocoder_kernel(dev)
+    dual_kern, dual_kern_ok = phase_vocoder_dual_kernel(dev)
     main_ok, launches = phase_main(dev)
     train_ok, (k2_launches, k3_launches) = phase_train(dev)
-    vocode_ok, k4_launches = phase_vocode(dev)
+    vocode_ok, k4_launches, k4_dual_launches = phase_vocode(dev)
     wav_ok, wav_launches = phase_convert_wav(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_recipe") as tmp:
         recipe_ok, recipe_launches = phase_recipe(dev, tmp)
@@ -2601,7 +2712,8 @@ def main() -> int:
                     + tool_launches["K3"] + scaling_launches.get("K3", 0))
     k4_launches += recipe_launches["K4"] + tool_launches["K4"]
     ok = (main_ok and train_ok and vocode_ok and wav_ok and recipe_ok and infer_ok and variants_ok
-          and tools_ok and parallel_ok and voc_kern_ok and all(r["ok"] for r in kern.values())
+          and tools_ok and parallel_ok and voc_kern_ok and dual_kern_ok
+          and all(r["ok"] for r in kern.values())
           and all(r["ok"] for r in train_kern.values()))
 
     def entry(name, source, replaces, n, r):
@@ -2626,6 +2738,10 @@ def main() -> int:
         entry("wavernn_generate", "cyclevae_tpu_torch/csrc/wavernn.cu",
               "cyclevae_tpu/ops/pallas_wavernn.py:82", k4_launches,
               voc_kern[f"B1/sampled{VOC_TEMPERATURE}"]),
+        # the main path: the converted requests rendered by the dual
+        # WaveRNN through synthesize_vocoder (phase_vocode)
+        entry("wavernn_generate_dual", "cyclevae_tpu_torch/csrc/wavernn.cu", None,
+              k4_dual_launches, dual_kern[f"B1/sampled{VOC_TEMPERATURE}"]),
     ]}), flush=True)
     if not ok:
         print("chip_smoke: a phase failed", file=sys.stderr)

@@ -83,6 +83,41 @@
 // Built with -DWAVERNN_PROFILE, thread 0 of block 0 sums the SM cycles each
 // phase of a step takes (wavernn_profile_read; ops/wavernn_phases.py names
 // and prints them; each PROF_MARK(i) closes phase i).
+//
+// The second instantiation, wavernn_kernel_dual: the published WaveRNN's
+// dual softmax over 16-bit audio (Kalchbrenner et al., arXiv:1802.08435,
+// eq. 2; models/wavernn.py; no TPU kernel has it).  Each of its phases runs
+// K4's stages through the same device functions (the weight staging, the
+// GRU cell, the first-layer partials and their sum in the cluster, the
+// noise, the fixed-order sum, the logits, the argmax key; Philox,
+// exchange.cuh) and the same cooperative launch in clusters; only the poll
+// of tagged words is written in each (in a device function it slows K4 by
+// 3.5%).  wavernn_kernel computes what it did.  Per step t, for the batch rows b (h = 0, c = 128, f = 0 before
+// step 0; Hh = H/2; x~ = x / 127.5 - 1, a true division):
+//   gh  = h_{t-1} . Whh^T + b_hh                     (both halves, off the chain)
+//   phase 0, the coarse units [0, Hh): gx = ((cond_gates + c~_{t-1} w0)
+//       + f~_{t-1} w1) + c~_{t-1} w2 (each product and sum rounded; w the
+//       masked input weights, w2 = 0 on these rows), the GRU cell as above,
+//       y_c; scores = (relu(y_c O1^T + b1) O2^T + b2) / temp + g0; c_t = argmax
+//   phase 1, the fine units [Hh, H): the same with c~_t in the last input,
+//       y_f; O3, O4, b3, b4, noise g1; f_t = argmax; out[b, t] = c_t * 256 + f_t.
+// The coarse noise is K4's: counter (t, b, k/4, 0); the fine (t, b, k/4, 1).
+// What bounds it: as K4, the chain of dependent steps, now two a sample: each
+// phase is K4's step (finish the half's units, the head's first-layer
+// partials summed in the cluster and pushed through L2 with h, a fixed-order
+// sum, the rank's logits, the argmax merged in the cluster), with H/2-wide
+// first layers (O1, O3 are H/2 x H/2, not fc x H).  The design:
+//   * Each half has its own blocks (U = 8 units, Hh / U of them, padded to
+//     whole clusters), so a phase's first-layer partials come from the
+//     clusters of its half; every cluster computes both heads' logits, each
+//     rank a slice of the classes of each (O2 and O4 slices in shared
+//     memory), and so reaches c_t and f_t itself, with no third exchange.
+//   * gh for every unit is computed once a step, while the fine head's
+//     candidates cross the cluster (K4's place): both halves take h_{t-1}.
+//     The noise of each head is drawn while thread 0 waits for the stores.
+//   * Exchange regions by head and step parity; a word carries its step.  A
+//     block writes a region's step t+2 only after it has read words that
+//     every reader of step t wrote after reading step t.
 
 #include <algorithm>
 
@@ -223,6 +258,170 @@ __device__ __forceinline__ void gate_dots(const float4 (&wreg)[3][kRegIters], co
 // f values owned (summed over the cluster) by each rank: a multiple of 4
 __host__ __device__ inline int rank_share(int BFs, int cs) { return (int)up4((BFs + cs - 1) / cs); }
 
+// ---- the stages both instantiations run: K4's step, and each phase of the dual's ----
+
+// the three Whh rows g*H + j of unit j into registers, float4 it at 128*it + 4*lane
+__device__ __forceinline__ void load_whh(float4 (&wreg)[3][kRegIters], const float* whh, int H,
+                                         int j, int lane) {
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+#pragma unroll
+    for (int it = 0; it < kRegIters; ++it) {
+      const int i = 128 * it + 4 * lane;
+      const float* row = whh + (size_t)(g * H + j) * H;
+      wreg[g][it] = make_float4(i < H ? row[i] : 0.f, i + 1 < H ? row[i + 1] : 0.f,
+                                i + 2 < H ? row[i + 2] : 0.f, i + 3 < H ? row[i + 3] : 0.f);
+    }
+  }
+}
+
+// the block's rows of b_hh (units j0 + u, u < nu), gh = b_hh (h_{-1} = 0) and the carry h = 0
+__device__ __forceinline__ void stage_gru_state(float* bhh_s, float* gh_s, float* hown_s,
+                                                const float* bhh, int B, int H, int j0, int nu) {
+  for (int q = threadIdx.x; q < 3 * kU; q += kThreads) {
+    const int g = q / kU, u = q % kU;
+    bhh_s[q] = u < nu ? bhh[g * H + j0 + u] : 0.f;
+  }
+  for (int q = threadIdx.x; q < B * 3 * kU; q += kThreads) {
+    const int g = q % (3 * kU) / kU, u = q % kU;
+    gh_s[q] = u < nu ? bhh[g * H + j0 + u] : 0.f;
+  }
+  for (int q = threadIdx.x; q < B * kU; q += kThreads) hown_s[q] = 0.f;
+}
+
+// [u][c] = w[c][col0 + u]: a head's first-layer columns of the block's units (0 past nu, FC)
+__device__ __forceinline__ void stage_columns(float* w_s, const float* w, int ld, int col0, int nu,
+                                              int FC, int FCs) {
+  for (int q = threadIdx.x; q < kU * FCs; q += kThreads) {
+    const int u = q / FCs, c = q % FCs;
+    w_s[q] = u < nu && c < FC ? w[(size_t)c * ld + col0 + u] : 0.f;
+  }
+}
+
+// [kk][c] = w[k0 + kk][c] and b[k0 + kk]: a head's last layer for the rank's classes (0 past kn, FC)
+__device__ __forceinline__ void stage_classes(float* w_s, float* b_s, const float* w, const float* b,
+                                              int k0, int kn, int Kc, int FC, int FCs) {
+  for (int q = threadIdx.x; q < Kc * FCs; q += kThreads) {
+    const int kk = q / FCs, c = q % FCs;
+    w_s[q] = kk < kn && c < FC ? w[(size_t)(k0 + kk) * FC + c] : 0.f;
+  }
+  for (int kk = threadIdx.x; kk < Kc; kk += kThreads) b_s[kk] = kk < kn ? b[k0 + kk] : 0.f;
+}
+
+// the GRU cell of unit fu from its input gates (gx0, gx1, gx2) and its gh row
+// (r, z, n, kU apart); the carry *own becomes h_t, which is returned
+__device__ __forceinline__ float gru_unit(float gx0, float gx1, float gx2, const float* gh, int fu,
+                                          float* own) {
+  const float rg = sigmoid_f(gx0 + gh[fu]);
+  const float zg = sigmoid_f(gx1 + gh[kU + fu]);
+  const float ng = tanhf(gx2 + rg * gh[2 * kU + fu]);
+  const float hnew = (1.f - zg) * ng + zg * *own;
+  *own = hnew;
+  return hnew;
+}
+
+// the block's partial of first-layer values [pc, pc+4) of a row: its units'
+// h (hrow, kU of them) times their columns
+__device__ __forceinline__ float4 first_layer_partial(const float* hrow, const float* w_s, int FCs,
+                                                      int pc) {
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);  // units past nu have h = 0 and weights 0
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+    const float hv = hrow[u];
+    const float4 w = load4(w_s + u * FCs + pc);
+    s = make_float4(fmaf(hv, w.x, s.x), fmaf(hv, w.y, s.y), fmaf(hv, w.z, s.z), fmaf(hv, w.w, s.w));
+  }
+  return s;
+}
+
+// the rank's n values: the cluster's cs partials (share apart in recv_s)
+// summed in rank order, stored at dst with the tag
+__device__ __forceinline__ void store_rank_sums(const float* recv_s, int share, int cs, int n,
+                                                unsigned long long* dst, unsigned tag) {
+  for (int q = threadIdx.x; q < n; q += kThreads) {
+    float v[kMaxCluster];  // ranks past cs read rank cs-1 (all loads in flight) and add 0
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) v[r] = recv_s[min(r, cs - 1) * share + q];
+    float s = v[0];
+#pragma unroll
+    for (int r = 1; r < kMaxCluster; ++r) s += r < cs ? v[r] : 0.f;
+    store_tagged(dst + q, s, tag);
+  }
+}
+
+// the Gumbel noise of the rank's Kc classes (from k0) of every row at step t:
+// Philox counter (t, b, k/4, head), the block's last threads first
+__device__ __forceinline__ void draw_noise(float* noise_s, int B, int Kc, int k0, int t,
+                                           unsigned head, unsigned seed) {
+  for (int q = kThreads - 1 - threadIdx.x; q < B * Kc / 4; q += kThreads) {
+    const int b = q / (Kc / 4), kk = 4 * (q % (Kc / 4));
+    const uint4 bits = philox4x32_10(make_uint4((unsigned)t, (unsigned)b, (unsigned)(k0 + kk) >> 2, head),
+                                     seed, 0u);
+    float* g = noise_s + b * Kc + kk;
+    g[0] = gumbel(bits.x);
+    g[1] = gumbel(bits.y);
+    g[2] = gumbel(bits.z);
+    g[3] = gumbel(bits.w);
+  }
+}
+
+// value r of the NC cluster partials (stride apart in stage), summed in a fixed order
+__device__ __forceinline__ float sum_partials(const float* stage, int NC, size_t stride, int r) {
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  int c = 0;
+#pragma unroll 4
+  for (; c + 4 <= NC; c += 4) {
+    s0 += stage[(size_t)c * stride + r];
+    s1 += stage[(size_t)(c + 1) * stride + r];
+    s2 += stage[(size_t)(c + 2) * stride + r];
+    s3 += stage[(size_t)(c + 3) * stride + r];
+  }
+#pragma unroll 1
+  for (; c < NC; ++c) s0 += stage[(size_t)c * stride + r];
+  return (s0 + s1) + (s2 + s3);
+}
+
+// the rank's scores of a head: eight lanes to a (row, class), group grp of
+// the block starting at (lb0, lk0) and stepping by kClassGroups tasks
+template <int kUnroll>
+__device__ __forceinline__ void rank_scores(const float* w_s, const float* b_s, const float* f_s,
+                                            const float* noise_s, float* score_s, int B, int Kc,
+                                            int kn, int FCs, int lb0, int lk0, int dlb, int dlk,
+                                            int sub, bool sampled, float tdiv) {
+  for (int base = 0, b = lb0, kk = lk0; base < B * Kc; base += kClassGroups) {
+    const bool live = b < B && kk < kn;
+    float acc = 0.f;
+    if (live) {
+#pragma unroll (kUnroll)
+      for (int c = 4 * sub; c < FCs; c += 4 * kLanesPerClass)
+        acc = dot4(load4(w_s + (size_t)kk * FCs + c), load4(f_s + (size_t)b * FCs + c), acc);
+    }
+#pragma unroll
+    for (int off = kLanesPerClass / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (live && sub == 0) {
+      float s = acc + b_s[kk];
+      if (sampled) s = s / tdiv + noise_s[b * Kc + kk];
+      score_s[b * Kc + kk] = s;
+    }
+    b += dlb;
+    kk += dlk;
+    if (kk >= Kc) {
+      kk -= Kc;
+      ++b;
+    }
+  }
+}
+
+// the best (score, class) key of a row's kn scores (classes from k0), over the warp
+__device__ __forceinline__ unsigned long long row_best_key(const float* score_row, int kn, int k0,
+                                                           int lane) {
+  unsigned long long key = 0;  // below every (score, class)
+  for (int kk = lane; kk < kn; kk += 32) key = max(key, arg_key(score_row[kk], k0 + kk));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) key = max(key, __shfl_xor_sync(0xffffffffu, key, off));
+  return key;
+}
+
 struct Smem {  // offsets in floats; every array starts on 16 bytes
   size_t stage, h, f, recv, hown, bhh, w1, b1, w2, b2, emb, gh, noise, score, cand, bars,
       total_bytes;
@@ -289,41 +488,15 @@ __global__ void __launch_bounds__(kThreads) wavernn_kernel(Args a) {
 
   // ---- weights into registers and shared memory, once per call ----
   float4 wreg[3][kRegIters];  // Whh rows g*H + j0 + warp, float4 it at 128*it + 4*lane
-  if (warp < nu) {
-#pragma unroll
-    for (int g = 0; g < 3; ++g) {
-#pragma unroll
-      for (int it = 0; it < kRegIters; ++it) {
-        const int i = 128 * it + 4 * lane;
-        const float* row = a.whh + (size_t)(g * H + j0 + warp) * H;
-        wreg[g][it] = make_float4(i < H ? row[i] : 0.f, i + 1 < H ? row[i + 1] : 0.f,
-                                  i + 2 < H ? row[i + 2] : 0.f, i + 3 < H ? row[i + 3] : 0.f);
-      }
-    }
-  }
-  for (int q = threadIdx.x; q < U * FCs; q += kThreads) {
-    const int u = q / FCs, c = q % FCs;
-    w1_s[q] = u < nu && c < FC ? a.w1[(size_t)c * H + j0 + u] : 0.f;
-  }
-  for (int q = threadIdx.x; q < Kc * FCs; q += kThreads) {
-    const int kk = q / FCs, c = q % FCs;
-    w2_s[q] = kk < kn && c < FC ? a.w2[(size_t)(k0 + kk) * FC + c] : 0.f;
-  }
+  if (warp < nu) load_whh(wreg, a.whh, H, j0 + warp, lane);
+  stage_columns(w1_s, a.w1, H, j0, nu, FC, FCs);
+  stage_classes(w2_s, b2_s, a.w2, a.b2, k0, kn, Kc, FC, FCs);
   for (int q = threadIdx.x; q < BFs; q += kThreads) b1_s[q] = q % FCs < FC ? a.b1[q % FCs] : 0.f;
-  for (int kk = threadIdx.x; kk < Kc; kk += kThreads) b2_s[kk] = kk < kn ? a.b2[k0 + kk] : 0.f;
-  for (int q = threadIdx.x; q < 3 * U; q += kThreads) {
-    const int g = q / U, u = q % U;
-    bhh_s[q] = u < nu ? a.bhh[g * H + j0 + u] : 0.f;
-  }
   for (int q = threadIdx.x; q < K * 3 * U; q += kThreads) {
     const int kk = q / (3 * U), g = q % (3 * U) / U, u = q % U;
     emb_s[q] = u < nu ? a.emb[(size_t)kk * H3 + g * H + j0 + u] : 0.f;
   }
-  for (int q = threadIdx.x; q < B * 3 * U; q += kThreads) {  // h_{-1} = 0: gh = b_hh
-    const int g = q % (3 * U) / U, u = q % U;
-    gh_s[q] = u < nu ? a.bhh[g * H + j0 + u] : 0.f;
-  }
-  for (int q = threadIdx.x; q < B * U; q += kThreads) hown_s[q] = 0.f;
+  stage_gru_state(bhh_s, gh_s, hown_s, a.bhh, B, H, j0, nu);
   if (threadIdx.x == 0) {
     mbar_init(bar_part);
     mbar_init(bar_cand);
@@ -381,13 +554,8 @@ __global__ void __launch_bounds__(kThreads) wavernn_kernel(Args a) {
         if (k == 0 && fu == 0) a.out[(size_t)fb * T + (t - 1)] = idx;
       }
       const float* e = emb_s + (size_t)idx * 3 * U;
-      const float* gh = gh_s + fb * 3 * U;
-      const float rg = sigmoid_f((cx[0] + e[fu]) + gh[fu]);
-      const float zg = sigmoid_f((cx[1] + e[U + fu]) + gh[U + fu]);
-      const float ng = tanhf((cx[2] + e[2 * U + fu]) + rg * gh[2 * U + fu]);
-      float* own = hown_s + threadIdx.x;
-      const float hnew = (1.f - zg) * ng + zg * *own;
-      *own = hnew;
+      const float hnew = gru_unit(cx[0] + e[fu], cx[1] + e[U + fu], cx[2] + e[2 * U + fu],
+                                  gh_s + fb * 3 * U, fu, hown_s + threadIdx.x);
       store_tagged(xdst + NC * BFs + (size_t)fb * Hs + j0 + fu, hnew, tag);
     } else if (hpad) {
       store_tagged(xdst + NC * BFs + (size_t)fb * Hs + j0 + fu, 0.f, tag);
@@ -396,31 +564,14 @@ __global__ void __launch_bounds__(kThreads) wavernn_kernel(Args a) {
     PROF_MARK(1);
 
     // ---- this block's partial of f = h_t . W1^T, 4 values to a thread, pushed to their rank ----
-    if (pushes) {
-      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);  // units past nu have h = 0 and W1 = 0
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const float hv = hown_s[pb * U + u];
-        const float4 w = load4(w1_s + u * FCs + pc);
-        s = make_float4(fmaf(hv, w.x, s.x), fmaf(hv, w.y, s.y), fmaf(hv, w.z, s.z), fmaf(hv, w.w, s.w));
-      }
-      push4(pdst, s, pbar);
-    }
+    if (pushes) push4(pdst, first_layer_partial(hown_s + pb * U, w1_s, FCs, pc), pbar);
     PROF_MARK(2);
 
     // ---- this rank's f values: the cluster's cs partials in rank order, stored with the tag ----
     mbar_wait(bar_part, cur);
     if (threadIdx.x == 0) mbar_expect(bar_part, part_bytes);  // the next phase: step t+1's
     PROF_MARK(3);
-    for (int q = threadIdx.x; q < hi - lo; q += kThreads) {
-      float v[kMaxCluster];  // ranks past cs read rank cs-1 (all loads in flight) and add 0
-#pragma unroll
-      for (int r = 0; r < kMaxCluster; ++r) v[r] = recv_s[min(r, cs - 1) * share + q];
-      float s = v[0];
-#pragma unroll
-      for (int r = 1; r < kMaxCluster; ++r) s += r < cs ? v[r] : 0.f;
-      store_tagged(xdst + (size_t)cid * BFs + lo + q, s, tag);
-    }
+    store_rank_sums(recv_s, share, cs, hi - lo, xdst + (size_t)cid * BFs + lo, tag);
     if (finisher && t + 1 < T) {  // the next step's conditioning gates, in flight from here
       const float* row = a.gates + ((size_t)fb * T + t + 1) * H3 + j0 + fu;
 #pragma unroll
@@ -432,18 +583,7 @@ __global__ void __launch_bounds__(kThreads) wavernn_kernel(Args a) {
 
     // ---- the noise of the coming sample (it depends on (seed, t, b, k) only),
     // drawn while thread 0 waits for every block to have stored this step ----
-    if (sampled) {
-      for (int q = kThreads - 1 - threadIdx.x; q < B * Kc / 4; q += kThreads) {
-        const int b = q / (Kc / 4), kk = 4 * (q % (Kc / 4));
-        const uint4 bits = philox4x32_10(
-            make_uint4((unsigned)t, (unsigned)b, (unsigned)(k0 + kk) >> 2, 0u), a.seed, 0u);
-        float* g = noise_s + b * Kc + kk;
-        g[0] = gumbel(bits.x);
-        g[1] = gumbel(bits.y);
-        g[2] = gumbel(bits.z);
-        g[3] = gumbel(bits.w);
-      }
-    }
+    if (sampled) draw_noise(noise_s, B, Kc, k0, t, 0u, a.seed);
     if (threadIdx.x == 0) wait_count(count, (unsigned)gridDim.x * tag);
     __syncthreads();
     PROF_MARK(5);
@@ -476,6 +616,8 @@ __global__ void __launch_bounds__(kThreads) wavernn_kernel(Args a) {
             dst[j] = NC * a.stage_rows + 2 * (i - np);
           }
         }
+        // the loads, in the kernel's own loop: the same loop in a device
+        // function, inlined, costs K4 ~200 cycles a step (3.5%)
         ulonglong2 w[kPoll];
         const long long start = clock64();
         for (;;) {
@@ -496,57 +638,22 @@ __global__ void __launch_bounds__(kThreads) wavernn_kernel(Args a) {
       PROF_MARK(6);
       __syncthreads();
 #pragma unroll 1
-      for (int r = threadIdx.x; r < n; r += kThreads) {  // the NC partials in a fixed order
-        float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-        int c = 0;
-#pragma unroll 4
-        for (; c + 4 <= NC; c += 4) {
-          s0 += stage[(size_t)c * n + r];
-          s1 += stage[(size_t)(c + 1) * n + r];
-          s2 += stage[(size_t)(c + 2) * n + r];
-          s3 += stage[(size_t)(c + 3) * n + r];
-        }
-#pragma unroll 1
-        for (; c < NC; ++c) s0 += stage[(size_t)c * n + r];
+      for (int r = threadIdx.x; r < n; r += kThreads)  // the NC partials in a fixed order
         // padding values: partials of zero W1 columns, +0, and b1 0 there
-        f_s[r0 + r] = fmaxf((s0 + s1) + (s2 + s3) + b1_s[r0 + r], 0.f);
-      }
+        f_s[r0 + r] = fmaxf(sum_partials(stage, NC, n, r) + b1_s[r0 + r], 0.f);
       __syncthreads();  // the stage is refilled by the next pass; f_s before the logits
     }
     PROF_MARK(7);
 
     // ---- the rank's logits: eight lanes to a (row, class) ----
-    for (int base = 0, b = lb0, kk = lk0; base < B * Kc; base += kClassGroups) {
-      const bool live = b < B && kk < kn;
-      float acc = 0.f;
-      if (live) {
-#pragma unroll 4
-        for (int c = 4 * sub; c < FCs; c += 4 * kLanesPerClass)
-          acc = dot4(load4(w2_s + (size_t)kk * FCs + c), load4(f_s + (size_t)b * FCs + c), acc);
-      }
-#pragma unroll
-      for (int off = kLanesPerClass / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (live && sub == 0) {
-        float s = acc + b2_s[kk];
-        if (sampled) s = s / tdiv + noise_s[b * Kc + kk];
-        score_s[b * Kc + kk] = s;
-      }
-      b += dlb;
-      kk += dlk;
-      if (kk >= Kc) {
-        kk -= Kc;
-        ++b;
-      }
-    }
+    rank_scores<4>(w2_s, b2_s, f_s, noise_s, score_s, B, Kc, kn, FCs, lb0, lk0, dlb, dlk, sub,
+                   sampled, tdiv);
     __syncthreads();
     PROF_MARK(8);
 
     // ---- the rank's best (score, class) of each row, pushed to every rank of the cluster ----
     for (int b = warp; b < B; b += kWarps) {
-      unsigned long long key = 0;  // below every (score, class)
-      for (int kk = lane; kk < kn; kk += 32) key = max(key, arg_key(score_s[b * Kc + kk], k0 + kk));
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) key = max(key, __shfl_xor_sync(0xffffffffu, key, off));
+      const unsigned long long key = row_best_key(score_s + b * Kc, kn, k0, lane);
       PROF_MARK(9);
       if (lane < cs) push_key(remote(smem_addr(cand_s + b * cs + rank), lane), key, remote(bar_cand, lane));
     }
@@ -630,6 +737,313 @@ int plan(int B, int H, int K, int FC, int* grid, int* units, int* cluster, int* 
   return cudaErrorCooperativeLaunchTooLarge;  // W2's slice, h or the grid does not fit
 }
 
+// ---- the dual instantiation (see the head of this file) ----
+
+struct DualArgs {
+  const float* gates;  // (B, T, 3H) conditioning gates, b_ih included
+  const float* win;    // (3H, 3)    masked weights of [c~_{t-1}, f~_{t-1}, c~_t]
+  const float* whh;    // (3H, H)
+  const float* bhh;    // (3H)
+  const float* o1;     // (Hh, Hh)  coarse head
+  const float* b1;     // (Hh)
+  const float* o2;     // (K, Hh)
+  const float* b2;     // (K)
+  const float* o3;     // (Hh, Hh)  fine head
+  const float* b3;     // (Hh)
+  const float* o4;     // (K, Hh)
+  const float* b4;     // (K)
+  int* out;            // (B, T) c * 256 + f
+  // (2 heads, 2 parities, XW) + 1 tagged words: the NCh cluster partials of
+  // the head's first layer (B*Hh each), then the half's h (B rows of Hh);
+  // then the count of the blocks' arrivals
+  unsigned long long* xbuf;
+  unsigned seed;
+  float temp;
+  int B, T, H, K, cs;
+  int Ghp;             // blocks of one half, a multiple of cs
+  int Kc;              // classes of a rank (a multiple of 4)
+};
+
+struct DualSmem {  // offsets in floats; every array starts on 16 bytes
+  size_t stage, h, f, recv, hown, bhh, win, w1, b1, w2, b2, gh, noise, score, cand, bars,
+      total_bytes;
+};
+
+__host__ __device__ inline DualSmem dual_smem_layout(int B, int H, int K, int cs, int NCh) {
+  const size_t Hh = H / 2, BFs = (size_t)B * Hh, Kc = up4((K + cs - 1) / cs), U = kU;
+  DualSmem s;
+  s.stage = 0;                                       // NCh*BFs  the phase's cluster partials, c-major
+  s.h = s.stage + NCh * BFs;                         // B*H      h_t, both halves
+  s.f = s.h + (size_t)B * H;                         // BFs      relu(y O^T + b) of the phase's head
+  s.recv = s.f + BFs;                                // cs*share the cluster's partials of this rank's values
+  s.hown = s.recv + (size_t)cs * rank_share((int)BFs, cs);  // B*U  own units' h (the carry)
+  s.bhh = s.hown + up4((size_t)B * U);               // 3U       own rows of b_hh
+  s.win = s.bhh + up4(3 * U);                        // 9U       [g][i][u] = win[g*H+j0+u][i]
+  s.w1 = s.win + up4(9 * U);                         // U*Hh     [u][c] = O[c][jl+u] of the block's half
+  s.b1 = s.w1 + U * Hh;                              // 2*Hh     b1, b3
+  s.w2 = s.b1 + 2 * Hh;                              // 2*Kc*Hh  [head][kk][c] = O2|O4[k0+kk][c]
+  s.b2 = s.w2 + 2 * Kc * Hh;                         // 2*Kc     b2, b4 of the rank's classes
+  s.gh = s.b2 + 2 * Kc;                              // B*3U     own gate rows of h Whh^T + b_hh
+  s.noise = s.gh + up4((size_t)B * 3 * U);           // B*Kc     Gumbel noise of the coming sample
+  s.score = s.noise + (size_t)B * Kc;                // B*Kc     scores of the rank's classes
+  s.cand = s.score + (size_t)B * Kc;                 // 2*B*cs*2 every rank's best key of each row, per head
+  s.bars = s.cand + 2 * up4((size_t)B * cs * 2);     // 3 mbarriers (8 bytes each)
+  s.total_bytes = (s.bars + 8) * sizeof(float);
+  return s;
+}
+
+__device__ __forceinline__ float scaled_byte(int v) { return __fsub_rn(__fdiv_rn((float)v, 127.5f), 1.0f); }
+
+__global__ void __launch_bounds__(kThreads) wavernn_kernel_dual(DualArgs a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float smem[];
+  constexpr int U = kU;
+  const int B = a.B, T = a.T, H = a.H, K = a.K, cs = a.cs, Kc = a.Kc;
+  const int Hh = H / 2, FCs = Hh, BFs = B * FCs;  // H % 8 == 0: Hh a multiple of 4
+  const size_t H3 = 3 * (size_t)H;
+  const int k = blockIdx.x, half = k / a.Ghp, kl = k % a.Ghp;
+  const int jl = kl * U, j0 = half * Hh + jl;  // the block's first unit in its half, in h
+  const int NCh = a.Ghp / cs, cid = kl / cs;   // clusters of a half; this block's among them
+  const int rank = (int)cluster.block_rank();
+  const int nu = max(0, min(U, Hh - jl));      // units this block owns (0 in padding blocks)
+  const int k0 = rank * Kc, kn = max(0, min(Kc, K - k0));  // the rank's classes
+  const int share = rank_share(BFs, cs), lo = rank * share, hi = min(BFs, lo + share);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool sampled = a.temp > 0.f;
+  const float tdiv = fmaxf(a.temp, 1e-6f);
+  const DualSmem L = dual_smem_layout(B, H, K, cs, NCh);
+
+  float* stage = smem + L.stage;
+  float* h_s = smem + L.h;
+  float* f_s = smem + L.f;
+  float* recv_s = smem + L.recv;
+  float* hown_s = smem + L.hown;
+  float* bhh_s = smem + L.bhh;
+  float* win_s = smem + L.win;
+  float* w1_s = smem + L.w1;
+  float* b1_s = smem + L.b1;
+  float* w2_s = smem + L.w2;
+  float* b2_s = smem + L.b2;
+  float* gh_s = smem + L.gh;
+  float* noise_s = smem + L.noise;
+  float* score_s = smem + L.score;
+  unsigned long long* cand_s[2] = {reinterpret_cast<unsigned long long*>(smem + L.cand),
+                                   reinterpret_cast<unsigned long long*>(smem + L.cand + up4((size_t)B * cs * 2))};
+  const unsigned bar_part = smem_addr(smem + L.bars);
+  const unsigned bar_cand[2] = {bar_part + 8, bar_part + 16};
+  const unsigned part_bytes = (unsigned)(cs * max(0, hi - lo) * 4), cand_bytes = (unsigned)(cs * B * 8);
+
+  // ---- weights into registers and shared memory, once per call ----
+  float4 wreg[3][kRegIters];  // Whh rows g*H + j0 + warp, float4 it at 128*it + 4*lane
+  if (warp < nu) load_whh(wreg, a.whh, H, j0 + warp, lane);
+  stage_columns(w1_s, half ? a.o3 : a.o1, Hh, jl, nu, FCs, FCs);
+  stage_classes(w2_s, b2_s, a.o2, a.b2, k0, kn, Kc, FCs, FCs);
+  stage_classes(w2_s + (size_t)Kc * FCs, b2_s + Kc, a.o4, a.b4, k0, kn, Kc, FCs, FCs);
+  for (int q = threadIdx.x; q < 2 * FCs; q += kThreads) b1_s[q] = (q < FCs ? a.b1 : a.b3)[q % FCs];
+  for (int q = threadIdx.x; q < 9 * U; q += kThreads) {
+    const int g = q / (3 * U), i = q / U % 3, u = q % U;
+    win_s[q] = u < nu ? a.win[(size_t)(g * H + j0 + u) * 3 + i] : 0.f;
+  }
+  stage_gru_state(bhh_s, gh_s, hown_s, a.bhh, B, H, j0, nu);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_part);
+    mbar_init(bar_cand[0]);
+    mbar_init(bar_cand[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect(bar_part, part_bytes);  // phase 0 of each: step 0's data
+    mbar_expect(bar_cand[0], cand_bytes);
+    mbar_expect(bar_cand[1], cand_bytes);
+  }
+
+  // thread q < B*U finishes unit u = q % U of row b = q / U in its half's
+  // phase; it keeps the row's samples: c_{t-1}, f_{t-1} and, in phase 1, c_t
+  const int fb = threadIdx.x / U, fu = threadIdx.x % U;
+  const bool finisher = threadIdx.x < B * U && fu < nu;
+  const int XW = NCh * BFs + B * Hh;  // words of one head's exchange of a step
+  unsigned* count = reinterpret_cast<unsigned*>(a.xbuf + 4 * (size_t)XW);
+  float cx[3] = {0.f, 0.f, 0.f};
+  if (finisher) {
+    const float* row = a.gates + (size_t)fb * T * H3 + j0 + fu;
+#pragma unroll
+    for (int g = 0; g < 3; ++g) cx[g] = __ldg(row + g * H);
+  }
+  const int grp = threadIdx.x / kLanesPerClass, sub = threadIdx.x % kLanesPerClass;
+  const int lb0 = grp / Kc, lk0 = grp % Kc, dlb = kClassGroups / Kc, dlk = kClassGroups % Kc;
+  int cprev = K / 2, fprev = 0, cnow = K / 2;
+  cluster.sync();  // every block of the cluster runs, with its mbarriers set
+
+  for (int t = 0; t < T; ++t) {
+    const unsigned tag = (unsigned)t + 1;  // the scratch words are 0 at launch
+#pragma unroll 1
+    for (int p = 0; p < 2; ++p) {
+      unsigned long long* xdst = a.xbuf + (size_t)(2 * p + (t & 1)) * XW;
+
+      // ---- the sample this phase waits for: f_{t-1} (phase 0) or c_t (phase 1) ----
+      if ((p == 1 || t > 0) && (finisher || threadIdx.x == 0)) {
+        const unsigned bar = bar_cand[1 - p];
+        mbar_wait(bar, p ? (t & 1) : ((t - 1) & 1));
+        if (threadIdx.x == 0) mbar_expect(bar, cand_bytes);  // the next phase: a step later
+      }
+      if (finisher && (p == 1 || t > 0)) {
+        const int s = key_index(best_candidate(cand_s[1 - p] + fb * cs, cs));
+        if (p == 1) {
+          cnow = s;
+        } else {
+          if (k == 0 && fu == 0) a.out[(size_t)fb * T + (t - 1)] = (cnow << 8) | s;
+          cprev = cnow;
+          fprev = s;
+        }
+      }
+
+      if (half == p) {
+        // ---- the half's units of h_t ----
+        if (finisher) {
+          const float x0 = scaled_byte(cprev), x1 = scaled_byte(fprev), x2 = scaled_byte(p ? cnow : cprev);
+          float gx[3];
+#pragma unroll
+          for (int g = 0; g < 3; ++g) {
+            const float* w = win_s + g * 3 * U + fu;
+            gx[g] = __fadd_rn(__fadd_rn(__fadd_rn(cx[g], __fmul_rn(x0, w[0])), __fmul_rn(x1, w[U])),
+                              __fmul_rn(x2, w[2 * U]));
+          }
+          const float hnew = gru_unit(gx[0], gx[1], gx[2], gh_s + fb * 3 * U, fu, hown_s + threadIdx.x);
+          store_tagged(xdst + NCh * BFs + (size_t)fb * Hh + jl + fu, hnew, tag);
+        }
+        __syncthreads();
+
+        // ---- this block's partial of the head's first layer, 4 values to a thread, to their rank ----
+        for (int pq = 4 * threadIdx.x; pq < BFs; pq += 4 * kThreads) {
+          const int pb = pq / FCs, pc = pq % FCs, owner = pq / share;
+          push4(remote(smem_addr(recv_s + rank * share + (pq - owner * share)), owner),
+                first_layer_partial(hown_s + pb * U, w1_s, FCs, pc), remote(bar_part, owner));
+        }
+
+        // ---- this rank's values: the cluster's cs partials in rank order, stored with the tag ----
+        mbar_wait(bar_part, t & 1);
+        if (threadIdx.x == 0) mbar_expect(bar_part, part_bytes);  // the next step's
+        store_rank_sums(recv_s, share, cs, hi - lo, xdst + (size_t)cid * BFs + lo, tag);
+        if (finisher && t + 1 < T) {  // the next step's conditioning gates, in flight from here
+          const float* row = a.gates + ((size_t)fb * T + t + 1) * H3 + j0 + fu;
+#pragma unroll
+          for (int g = 0; g < 3; ++g) cx[g] = __ldg(row + g * H);
+        }
+      }
+      __syncthreads();
+      if (threadIdx.x == 0) add_count(count);  // a hint: the tags decide
+
+      // ---- the head's noise of this step, drawn while thread 0 waits for every block ----
+      if (sampled) draw_noise(noise_s, B, Kc, k0, t, (unsigned)p, a.seed);
+      if (threadIdx.x == 0) wait_count(count, (unsigned)gridDim.x * (2 * (unsigned)t + p + 1));
+      __syncthreads();
+
+      // ---- the NCh cluster partials and the half's h_t, polled until they carry the tag ----
+      const int np = NCh * BFs / 2, nh = B * Hh / 2;  // word pairs of partials, of h
+      for (int base = 0; base < np + nh; base += kPoll * kThreads) {
+        int src[kPoll];
+        float* dst[kPoll];
+        unsigned ready = 0;  // bit j: pair j needs no further load
+#pragma unroll
+        for (int j = 0; j < kPoll; ++j) {
+          const int i = base + threadIdx.x + j * kThreads;
+          if (i >= np + nh) {
+            src[j] = 0;
+            dst[j] = stage;
+            ready |= 1u << j;
+          } else if (i < np) {
+            src[j] = 2 * i;
+            dst[j] = stage + 2 * i;
+          } else {
+            const int w = 2 * (i - np);
+            src[j] = NCh * BFs + w;
+            dst[j] = h_s + (size_t)(w / Hh) * H + p * Hh + w % Hh;
+          }
+        }
+        ulonglong2 w[kPoll];  // K4's loads (kept in each kernel: see there)
+        const long long start = clock64();
+        for (;;) {
+#pragma unroll
+          for (int j = 0; j < kPoll; ++j)
+            if (!(ready >> j & 1)) w[j] = load_tagged2(xdst + src[j]);
+#pragma unroll
+          for (int j = 0; j < kPoll; ++j) {
+            if (!(ready >> j & 1) && tag_of(w[j].x) == tag && tag_of(w[j].y) == tag) {
+              ready |= 1u << j;
+              *reinterpret_cast<float2*>(dst[j]) = make_float2(value_of(w[j].x), value_of(w[j].y));
+            }
+          }
+          if (ready == (1u << kPoll) - 1) break;
+          spin_guard(start);
+        }
+      }
+      __syncthreads();
+      for (int b = 0; b < B; ++b) {  // the NCh partials in a fixed order
+#pragma unroll 1
+        for (int c = threadIdx.x; c < FCs; c += kThreads)
+          f_s[b * FCs + c] = fmaxf(sum_partials(stage, NCh, BFs, b * FCs + c) + b1_s[p * FCs + c], 0.f);
+      }
+      __syncthreads();
+
+      // ---- the rank's logits of the head: eight lanes to a (row, class) ----
+      rank_scores<2>(w2_s + (size_t)p * Kc * FCs, b2_s + p * Kc, f_s, noise_s, score_s, B, Kc, kn,
+                     FCs, lb0, lk0, dlb, dlk, sub, sampled, tdiv);
+      __syncthreads();
+
+      // ---- the rank's best (score, class) of each row, pushed to every rank of the cluster ----
+      for (int b = warp; b < B; b += kWarps) {
+        const unsigned long long key = row_best_key(score_s + b * Kc, kn, k0, lane);
+        if (lane < cs)
+          push_key(remote(smem_addr(cand_s[p] + b * cs + rank), lane), key, remote(bar_cand[p], lane));
+      }
+
+      // ---- while the fine candidates cross the cluster: gh = h_t . Whh^T + b_hh ----
+      if (p == 1 && warp < nu && t + 1 < T) {
+        for (int b0 = 0; b0 < B; b0 += kBatchChunk) {
+          if (B - b0 == 1) gate_dots<1>(wreg, h_s, bhh_s, gh_s, B, H, H, b0, warp, lane);
+          else gate_dots<kBatchChunk>(wreg, h_s, bhh_s, gh_s, B, H, H, b0, warp, lane);
+        }
+      }
+      __syncthreads();  // gh_s before the finishers; score_s, f_s and h_s read before they are refilled
+    }
+  }
+
+  // ---- the last sample; no block leaves while st.async data is still due to it ----
+  mbar_wait(bar_cand[1], (T - 1) & 1);
+  if (k == 0 && finisher && fu == 0)
+    a.out[(size_t)fb * T + (T - 1)] = (cnow << 8) | key_index(best_candidate(cand_s[1] + fb * cs, cs));
+  cluster.sync();
+}
+
+int plan_dual(int B, int H, int K, int* grid, int* units, int* cluster, int* stage_rows, int* smem) {
+  if (B < 1 || H < 8 || H % 8 || K < 1 || H > 128 * kRegIters) return cudaErrorInvalidValue;
+  int sms = 0, optin = 0;
+  cudaError_t e = device_facts(&sms, &optin);
+  if (e != cudaSuccess) return e;
+  const int U = kU, Hh = H / 2, Gh = (Hh + U - 1) / U;
+  if ((long long)B * U > kThreads) return cudaErrorInvalidValue;
+  // the largest cluster whose grid stays resident; every partial of a
+  // phase is summed in one pass through shared memory
+  for (int cs = kMaxCluster; cs >= 1; cs /= 2) {
+    const int Ghp = (Gh + cs - 1) / cs * cs, NCh = Ghp / cs;
+    const size_t s = dual_smem_layout(B, H, K, cs, NCh).total_bytes;
+    if (s > (size_t)optin) continue;
+    e = cudaFuncSetAttribute(wavernn_kernel_dual, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s);
+    if (e != cudaSuccess) return e;
+    cudaLaunchAttribute attrs[2];
+    const cudaLaunchConfig_t c = launch_config(2 * Ghp, (int)s, attrs, cs, false, nullptr);
+    int active = 0;
+    e = cudaOccupancyMaxActiveClusters(&active, wavernn_kernel_dual, &c);
+    if (e != cudaSuccess) return e;
+    if (active < 2 * NCh) continue;
+    *grid = 2 * Ghp;
+    *units = U;
+    *cluster = cs;
+    *stage_rows = B * Hh;
+    *smem = (int)s;
+    return cudaSuccess;
+  }
+  return cudaErrorCooperativeLaunchTooLarge;  // the heads' slices, the stage or the grid does not fit
+}
+
 }  // namespace
 
 extern "C" {
@@ -675,6 +1089,44 @@ int wavernn_generate_f32(const void* gates, const void* emb, const void* whh, co
   const cudaLaunchConfig_t c =
       launch_config(grid, smem, attrs, cluster, true, static_cast<cudaStream_t>(stream));
   e = cudaLaunchKernelEx(&c, wavernn_kernel, a);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// the dual instantiation's plan (fc unused) and launch; xbuf: 4 * (grid / 2 /
+// cluster * B * H/2 + B * H/2) + 1 8-byte words, zeroed
+int wavernn_dual_plan(int B, int H, int K, int /*fc*/, int* grid, int* units, int* cluster,
+                      int* stage_rows, int* smem) {
+  return plan_dual(B, H, K, grid, units, cluster, stage_rows, smem);
+}
+
+int wavernn_dual_generate_f32(const void* gates, const void* win, const void* whh, const void* bhh,
+                              const void* o1, const void* b1, const void* o2, const void* b2,
+                              const void* o3, const void* b3, const void* o4, const void* b4,
+                              void* out, void* xbuf, unsigned seed, float temp, int B, int T, int H,
+                              int K, int grid, int units, int cluster, int smem, void* stream) {
+  if (B < 1 || T < 1 || H < 8 || H % 8 || K < 1 || units != kU || (long long)B * units > kThreads ||
+      H > 128 * kRegIters || cluster < 1 || cluster > kMaxCluster || grid % (2 * cluster) ||
+      (long long)grid / 2 * units < H / 2)
+    return cudaErrorInvalidValue;
+  DualArgs a{static_cast<const float*>(gates), static_cast<const float*>(win),
+             static_cast<const float*>(whh),   static_cast<const float*>(bhh),
+             static_cast<const float*>(o1),    static_cast<const float*>(b1),
+             static_cast<const float*>(o2),    static_cast<const float*>(b2),
+             static_cast<const float*>(o3),    static_cast<const float*>(b3),
+             static_cast<const float*>(o4),    static_cast<const float*>(b4),
+             static_cast<int*>(out),           static_cast<unsigned long long*>(xbuf),
+             seed,
+             temp,
+             B, T, H, K, cluster,
+             grid / 2,
+             (int)up4((K + cluster - 1) / cluster)};
+  cudaError_t e = cudaFuncSetAttribute(wavernn_kernel_dual, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attrs[2];
+  const cudaLaunchConfig_t c =
+      launch_config(grid, smem, attrs, cluster, true, static_cast<cudaStream_t>(stream));
+  e = cudaLaunchKernelEx(&c, wavernn_kernel_dual, a);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }

@@ -1,5 +1,7 @@
-"""WaveRNN-class neural vocoder: mu-law sample-level GRU conditioned on the
-54-d acoustic features.
+"""WaveRNN-class neural vocoder: sample-level GRU conditioned on the 54-d
+acoustic features, with one of two output layers: one mu-law softmax (the
+default), or the published WaveRNN's dual softmax over 16-bit audio
+(``WaveRNNConfig.dual``, below).
 
 PyTorch counterpart of ``cyclevae_tpu/models/wavernn.py``, same parameter
 dict (torch layout: GRU ``w_ih``/``w_hh`` (3H, in) with gate rows [r, z, n],
@@ -14,6 +16,21 @@ dense ``w`` (out, in)) and same functions:
   * ``generate_reference`` is the plain sampler (the JAX package's
     ``generate_xla``); the sampler on the card is the CUDA kernel behind
     ``ops/cuda_wavernn.py``.
+
+The dual output (Kalchbrenner et al., "Efficient Neural Audio Synthesis",
+ICML 2018, arXiv:1802.08435, section 2, eq. 2 and Fig. 1; the JAX package
+has no counterpart): a 16-bit sample s is u16 = s + 32768, coarse c = u16 >> 8
+and fine f = u16 & 255.  The GRU's input is x_t = [c~_{t-1}, f~_{t-1}, c~_t]
+(v~ = v / 127.5 - 1) beside the conditioning; ``w_ih``'s c~_t column is
+masked to zero on the coarse half's rows of every gate, so the current
+coarse sample reaches only the fine half.  h_t splits into y_c and y_f of
+H/2 units each; P(c_t) = softmax(O2 relu(O1 y_c + b1) + b2) and P(f_t) =
+softmax(O4 relu(O3 y_f + b3) + b4), O1 and O3 (H/2, H/2), O2 and O4
+(n_classes, H/2).  A step: the coarse half, its head and c_t; then the fine
+half, its head and f_t.  Training is teacher-forced with both samples known,
+so the recurrence is one GRU over [c~_{t-1}, f~_{t-1}, c~_t, cond] with
+``w_ih * mask`` (masked entries get zero gradient), and the loss is the sum
+of the two heads' mean cross-entropies.
 """
 
 from __future__ import annotations
@@ -22,7 +39,7 @@ import math
 from contextlib import contextmanager
 from dataclasses import dataclass
 from fractions import Fraction
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -45,10 +62,28 @@ class WaveRNNConfig:
     n_spk: int = 0
     # samples per frame, fractional: 5 ms @ 22.05 kHz = 110.25 = 441/4
     hop: float = 110.25
+    # the published output layer: 16-bit samples from a coarse and a fine
+    # softmax of n_classes = 256 each over the two halves of h (see the
+    # module's docstring; embed_dim and fc_dim are then unused); else one
+    # n_classes mu-law softmax
+    dual: bool = False
+
+    def __post_init__(self):
+        if self.dual and (self.n_classes != 256 or self.hidden_units % 8):
+            raise ValueError("the dual output needs n_classes 256 (two bytes of a 16-bit "
+                             f"sample) and hidden_units a multiple of 8, got {self.n_classes}, "
+                             f"{self.hidden_units}")
 
     @property
     def cond_in_dim(self) -> int:
         return self.feat_dim + self.n_spk
+
+    @property
+    def input_dim(self) -> int:
+        """The GRU's input columns ahead of the conditioning: the embedding
+        of the previous sample, or the dual output's [c~_{t-1}, f~_{t-1},
+        c~_t]."""
+        return 3 if self.dual else self.embed_dim
 
 
 def hop_fraction(cfg: WaveRNNConfig) -> Tuple[int, int]:
@@ -88,14 +123,77 @@ def mulaw_decode(idx: torch.Tensor, n_classes: int = 256) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# 16-bit codec of the dual output
+# ---------------------------------------------------------------------------
+
+def pcm16_encode(x: torch.Tensor) -> torch.Tensor:
+    """[-1, 1) float -> u16 = s + 32768 in [0, 65536), int32, with s the
+    nearest 16-bit value of 32768 x (clipped)."""
+    s = torch.clamp(torch.floor(x.to(_F32) * 32768.0 + 0.5), -32768.0, 32767.0)
+    return s.to(torch.int32) + 32768
+
+
+def pcm16_decode(u16: torch.Tensor) -> torch.Tensor:
+    """u16 = c * 256 + f -> s / 32768 float32 (exact: |s| <= 2^15)."""
+    return (u16.to(torch.int32) - 32768).to(_F32) / 32768.0
+
+
+def split16(u16: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """u16 -> (coarse, fine) bytes."""
+    return u16 >> 8, u16 & 255
+
+
+def scaled_byte(v: torch.Tensor) -> torch.Tensor:
+    """A byte as the GRU's input: v / 127.5 - 1, float32 (a true division, as
+    the kernel takes it)."""
+    return v.to(_F32) / torch.full((), 127.5, dtype=_F32, device=v.device) - 1.0
+
+
+def dual_input_mask(cfg: WaveRNNConfig, device=None) -> torch.Tensor:
+    """(3H, 3 + cond_dim) ones with the c~_t column zero on the coarse
+    half's rows of each gate [r, z, n]."""
+    H = cfg.hidden_units
+    m = torch.ones((3 * H, cfg.input_dim + cfg.cond_dim), dtype=_F32, device=device)
+    for g in range(3):
+        m[g * H:g * H + H // 2, 2] = 0.0
+    return m
+
+
+def dual_input_weights(params: Dict, cfg: WaveRNNConfig) -> torch.Tensor:
+    """The masked weights (3H, 3) of [c~_{t-1}, f~_{t-1}, c~_t]."""
+    w = params["gru"]["w_ih"]
+    return w[:, :3] * dual_input_mask(cfg, w.device)[:, :3]
+
+
+def dual_inputs(c_prev: torch.Tensor, f_prev: torch.Tensor, c_cur: torch.Tensor) -> torch.Tensor:
+    """x_t = [c~_{t-1}, f~_{t-1}, c~_t]: (...) bytes -> (..., 3) float32."""
+    return torch.stack([scaled_byte(c_prev), scaled_byte(f_prev), scaled_byte(c_cur)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
 # params / cond net
 # ---------------------------------------------------------------------------
 
 def init_wavernn(generator: torch.Generator, cfg: WaveRNNConfig) -> Dict:
     """Random parameters drawn from ``generator``, on its device."""
     H = cfg.hidden_units
-    in_dim = cfg.embed_dim + cfg.cond_dim
+    in_dim = cfg.input_dim + cfg.cond_dim
     dev = generator.device
+    if cfg.dual:
+        Hh = H // 2
+        return {
+            "cond": init_dense(generator, cfg.cond_in_dim, cfg.cond_dim),
+            "gru": {
+                "w_ih": xavier_uniform(generator, (3 * H, in_dim)) * dual_input_mask(cfg, dev),
+                "w_hh": xavier_uniform(generator, (3 * H, H)),
+                "b_ih": torch.zeros((3 * H,), device=dev),
+                "b_hh": torch.zeros((3 * H,), device=dev),
+            },
+            "O1": init_dense(generator, Hh, Hh),
+            "O2": init_dense(generator, Hh, cfg.n_classes),
+            "O3": init_dense(generator, Hh, Hh),
+            "O4": init_dense(generator, Hh, cfg.n_classes),
+        }
     return {
         "embed": xavier_uniform(generator, (cfg.n_classes, cfg.embed_dim)),
         "cond": init_dense(generator, cfg.cond_in_dim, cfg.cond_dim),
@@ -134,13 +232,39 @@ def embed_gate_table(params: Dict) -> torch.Tensor:
 def cond_gates(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor) -> torch.Tensor:
     """The conditioning's input-gate contribution, b_ih included:
     (..., cond_dim) -> (..., 3H)."""
-    w_cond = params["gru"]["w_ih"][:, cfg.embed_dim:]
+    w_cond = params["gru"]["w_ih"][:, cfg.input_dim:]
     return cond @ w_cond.T + params["gru"]["b_ih"]
 
 
 def _logits(params: Dict, h: torch.Tensor) -> torch.Tensor:
     f = torch.relu(h @ params["fc1"]["w"].T + params["fc1"]["b"])
     return f @ params["fc2"]["w"].T + params["fc2"]["b"]
+
+
+def dual_head(params: Dict, head: int, y: torch.Tensor) -> torch.Tensor:
+    """The coarse (head 0: O1, O2) or fine (head 1: O3, O4) logits of a half
+    ``y`` (..., H/2) of the hidden state."""
+    a, b = (params["O1"], params["O2"]) if head == 0 else (params["O3"], params["O4"])
+    return torch.relu(y @ a["w"].T + a["b"]) @ b["w"].T + b["b"]
+
+
+def dual_teacher_forced_logits(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
+                               u16: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Training forward of the dual output from h = 0: cond (B, T,
+    cond_dim), u16 (B, T) the ground-truth samples (the first step's
+    previous sample c = 128, f = 0).  Returns (coarse logits, fine logits
+    (B, T, n_classes), h_T), through the recurrence ``teacher_forced_logits``
+    uses."""
+    c, f = split16(u16.long())
+    c_prev = torch.cat([torch.full_like(c[:, :1], 128), c[:, :-1]], dim=1)
+    f_prev = torch.cat([torch.zeros_like(f[:, :1]), f[:, :-1]], dim=1)
+    x = dual_inputs(c_prev, f_prev, c)
+    h0 = torch.zeros((cond.shape[0], cfg.hidden_units), dtype=cond.dtype, device=cond.device)
+    recurrence = plain_recurrence if cond.device.type == "cpu" else cudnn_recurrence
+    hs = recurrence(params, cfg, cond, x, h0)
+    Hh = cfg.hidden_units // 2
+    return dual_head(params, 0, hs[..., :Hh]), dual_head(params, 1, hs[..., Hh:]), hs[:, -1]
 
 
 def teacher_forced_logits(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
@@ -162,9 +286,13 @@ def teacher_forced_logits(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
 def plain_recurrence(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
                      prev_idx: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
     """The teacher-forced GRU, one ``_gru_cell`` per sample with the input
-    gates hoisted: (B, T, cond_dim), (B, T) -> hidden states (B, T, H)."""
+    gates hoisted: (B, T, cond_dim), (B, T) previous indices (the dual
+    output: (B, T, 3) inputs x_t) -> hidden states (B, T, H)."""
     H = cfg.hidden_units
-    gates_x = cond_gates(params, cfg, cond) + embed_gate_table(params)[prev_idx]
+    if cfg.dual:
+        gates_x = cond_gates(params, cfg, cond) + prev_idx @ dual_input_weights(params, cfg).T
+    else:
+        gates_x = cond_gates(params, cfg, cond) + embed_gate_table(params)[prev_idx]
     h, hs = h0, []
     for t in range(cond.shape[1]):
         h = _gru_cell(gates_x[:, t], h, params["gru"]["w_hh"], params["gru"]["b_hh"], H)
@@ -188,9 +316,14 @@ def cudnn_recurrence(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
     if not torch.backends.cudnn.is_available():
         raise RuntimeError("the teacher-forced WaveRNN on CUDA needs cuDNN")
     g = params["gru"]
-    x = torch.cat([params["embed"][prev_idx], cond], dim=-1)
+    w_ih = g["w_ih"]
+    if cfg.dual:   # the inputs x_t, and the mask on the weights
+        x = torch.cat([prev_idx, cond], dim=-1)
+        w_ih = w_ih * dual_input_mask(cfg, w_ih.device)
+    else:
+        x = torch.cat([params["embed"][prev_idx], cond], dim=-1)
     with full_f32_cudnn():
-        hs, _ = torch._VF.gru(x, h0[None].contiguous(), [g["w_ih"], g["w_hh"], g["b_ih"], g["b_hh"]],
+        hs, _ = torch._VF.gru(x, h0[None].contiguous(), [w_ih, g["w_hh"], g["b_ih"], g["b_hh"]],
                               True, 1, 0.0, torch.is_grad_enabled(), False, True)
     return hs
 
@@ -209,8 +342,17 @@ def full_f32_cudnn():
 
 def wavernn_loss(params: Dict, cfg: WaveRNNConfig, feats: torch.Tensor,
                  wav: torch.Tensor) -> torch.Tensor:
-    """Teacher-forced NLL: feats (B, F, feat_dim), wav (B, F*hop) in [-1, 1]."""
+    """Teacher-forced NLL: feats (B, F, feat_dim), wav (B, F*hop) in [-1, 1].
+    The dual output: the coarse head's mean cross-entropy plus the fine
+    head's."""
     cond = upsample_cond(params, cfg, feats)
+    if cfg.dual:
+        u16 = pcm16_encode(wav).long()
+        c, f = split16(u16)
+        lc, lf, _ = dual_teacher_forced_logits(params, cfg, cond, u16)
+        nll = lambda logits, idx: -torch.gather(torch.log_softmax(logits, dim=-1), -1,
+                                                idx[..., None])[..., 0].mean()
+        return nll(lc, c) + nll(lf, f)
     idx = mulaw_encode(wav, cfg.n_classes).long()                 # (B, T)
     prev = torch.cat([torch.full_like(idx[:, :1], cfg.n_classes // 2), idx[:, :-1]], dim=1)
     logits, _ = teacher_forced_logits(params, cfg, cond, prev)
@@ -224,11 +366,22 @@ def generate_reference(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
                        generator: Optional[torch.Generator] = None,
                        u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain AR sampler (the JAX package's ``generate_xla``), step by step.
-    cond (T, cond_dim) -> sampled mu-law indices (T,) int32.
+    cond (T, cond_dim) -> sampled mu-law indices (T,) int32; the dual
+    output: 16-bit samples u16 = c * 256 + f (T,) int32.
 
     Sampled mode (``temperature > 0``) adds Gumbel noise -log(-log(u)) to
     ``logits / temperature`` and takes the argmax; the uniforms ``u`` (T,
-    n_classes) in [1e-9, 1) are drawn from ``generator``, or handed in."""
+    n_classes), dual (T, 2, n_classes) a head each, in [1e-9, 1) are drawn
+    from ``generator``, or handed in."""
+    if cfg.dual:
+        gumbel = None
+        if temperature > 0:
+            if u is None:
+                u = (torch.rand((cond.shape[0], 2, cfg.n_classes), generator=generator,
+                                device=cond.device) * (1.0 - 1e-9) + 1e-9)
+            g = -torch.log(-torch.log(u.to(device=cond.device, dtype=_F32)))
+            gumbel = lambda t0, n, head: g[t0:t0 + n, head, None]
+        return dual_sampler(params, cfg, cond[None], gumbel, temperature)[0]
     H, K = cfg.hidden_units, cfg.n_classes
     T = cond.shape[0]
     emb_tab = embed_gate_table(params)
@@ -251,3 +404,71 @@ def generate_reference(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
             prev = torch.argmax(logits)
         out[t] = prev
     return out
+
+
+def dual_sampler(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
+                 gumbel: Optional[Callable[[int, int, int], torch.Tensor]] = None,
+                 temperature: float = 1.0, margins: bool = False):
+    """The dual output's AR sampler, step by step, float32, with the numerics
+    of K4's dual instantiation: per step R h_{t-1} for both halves; the
+    coarse half's gates, the conditioning gates plus x_t w_in one input at a
+    time (x_t = [c~_{t-1}, f~_{t-1}, c~_{t-1}]: the mask zeroes the last
+    column there), its head and c_t; then the fine half's with c~_t, its
+    head and f_t.  cond (B, T, cond_dim); ``gumbel(t0, n, head)`` gives the
+    noise (n, B, n_classes) of steps [t0, t0 + n), drawn 4,096 steps at a
+    time: the scores are logits / max(temperature, 1e-6) + noise, and
+    without it the logits.  Returns (B, T) int32 16-bit samples u16 = c *
+    256 + f; with ``margins``, also (B, T, 2) float32 tensors of each
+    head's gap between its two largest scores and its largest |score|."""
+    B, T, _ = cond.shape
+    H, K = cfg.hidden_units, cfg.n_classes
+    Hh, dev = H // 2, cond.device
+    g = params["gru"]
+    # rows of each half: [r, z, n] of the coarse units, then of the fine ones
+    perm = torch.cat([torch.arange(gi * H + p * Hh, gi * H + p * Hh + Hh, device=dev)
+                      for p in (0, 1) for gi in range(3)])
+    gates = cond_gates(params, cfg, cond.to(_F32)).to(_F32)[..., perm]
+    w_in = dual_input_weights(params, cfg).to(_F32)[perm]
+    whh, bhh = g["w_hh"].to(_F32)[perm], g["b_hh"].to(_F32)[perm]
+    heads = {k: {n: params[k][n].to(_F32) for n in ("w", "b")} for k in ("O1", "O2", "O3", "O4")}
+    # a tensor divisor, so that the division is a true division on every device
+    tdiv = torch.full((1,), max(temperature, 1e-6), dtype=_F32, device=dev)
+
+    h = torch.zeros((B, H), dtype=_F32, device=dev)
+    c = torch.full((B,), K // 2, dtype=torch.int64, device=dev)
+    f = torch.zeros((B,), dtype=torch.int64, device=dev)
+    out = torch.empty((B, T), dtype=torch.int32, device=dev)
+    gap = torch.empty((B, T, 2), dtype=_F32, device=dev) if margins else None
+    scale = torch.empty((B, T, 2), dtype=_F32, device=dev) if margins else None
+    for t0 in range(0, T, 4096):     # bounds the noise drawn at once
+        n = min(4096, T - t0)
+        noise = [gumbel(t0, n, p) for p in (0, 1)] if gumbel is not None else None
+        for s in range(n):
+            t = t0 + s
+            gh = h @ whh.T + bhh                                   # R h_{t-1}, both halves
+            halves, cur = [], c
+            for p in (0, 1):
+                rows = slice(3 * Hh * p, 3 * Hh * (p + 1))
+                x = dual_inputs(c, f, cur)                         # c~_t: c_{t-1} for the coarse half
+                gx = gates[:, t, rows]
+                for i in range(3):
+                    gx = gx + x[:, i:i + 1] * w_in[rows, i]
+                ghp = gh[:, rows]
+                r = torch.sigmoid(gx[:, :Hh] + ghp[:, :Hh])
+                z = torch.sigmoid(gx[:, Hh:2 * Hh] + ghp[:, Hh:2 * Hh])
+                nn = torch.tanh(gx[:, 2 * Hh:] + r * ghp[:, 2 * Hh:])
+                y = (1.0 - z) * nn + z * h[:, p * Hh:(p + 1) * Hh]
+                logits = dual_head(heads, p, y)
+                scores = logits / tdiv + noise[p][s] if noise is not None else logits
+                cur = torch.argmax(scores, dim=-1)
+                if margins:
+                    top2 = torch.topk(scores, min(2, K), dim=-1).values
+                    gap[:, t, p] = top2[:, 0] - top2[:, -1]
+                    scale[:, t, p] = scores.abs().amax(dim=-1)
+                halves.append(y)
+                if p == 0:
+                    c_t = cur
+            h = torch.cat(halves, dim=-1)
+            c, f = c_t, cur
+            out[:, t] = c * 256 + f
+    return (out, gap, scale) if margins else out

@@ -26,6 +26,16 @@ the kernel computes itself and ``philox4x32_10`` computes in torch: key
 (seed, 0), counter (t, b, k // 4, 0), word k % 4 for class k.  So the kernel
 and its plain version draw the same uniforms, and the sampled output can be
 held index by index, not only in distribution.
+
+The dual output (``WaveRNNConfig.dual``, the published WaveRNN's coarse and
+fine softmax over 16-bit audio) has its own instantiation of the kernel in
+the same source, one launch a call too, with the same contract: (B, T)
+int32 16-bit samples u16 = c * 256 + f.  The wrapper passes the masked
+input weights of [c~_{t-1}, f~_{t-1}, c~_t] beside the conditioning gates;
+its plain version, ``dual_generate_reference``, is ``models/wavernn.py``'s
+``dual_sampler`` (the step's numerics are written there) with the kernel's
+uniforms: the coarse head K4's counter (t, b, k // 4, 0), the fine head
+(t, b, k // 4, 1).
 """
 
 from __future__ import annotations
@@ -37,7 +47,9 @@ import torch
 
 from . import _build
 from .cuda_gru import _ptr, _stream, _up4
-from ..models.wavernn import WaveRNNConfig, cond_gates, embed_gate_table
+from ..utils.profiling import count
+from ..models.wavernn import (WaveRNNConfig, cond_gates, dual_input_weights, dual_sampler,
+                              embed_gate_table)
 
 _F32 = torch.float32
 _MASK32 = 0xFFFFFFFF
@@ -76,16 +88,17 @@ def philox4x32_10(counter: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
 
 
 def philox_uniforms(seed: int, t0: int, T: int, B: int, K: int,
-                    device=None) -> torch.Tensor:
+                    device=None, head: int = 0) -> torch.Tensor:
     """The kernel's uniforms for steps [t0, t0+T): (T, B, K) float32 in
     [0, 1), u = (bits & 0x7fffff) * 2^-23 with bits the Philox word of
-    counter (t, b, k // 4, 0) and key (seed, 0)."""
+    counter (t, b, k // 4, head) and key (seed, 0); head 1 is the dual
+    output's fine head."""
     words = (K + 3) // 4
     i64 = dict(dtype=torch.int64, device=device)
     t = torch.arange(t0, t0 + T, **i64)[:, None, None].expand(T, B, words)
     b = torch.arange(B, **i64)[None, :, None].expand(T, B, words)
     w = torch.arange(words, **i64)[None, None, :].expand(T, B, words)
-    counter = torch.stack([t, b, w, torch.zeros_like(t)], dim=-1)
+    counter = torch.stack([t, b, w, torch.full_like(t, head)], dim=-1)
     key = torch.tensor([seed & _MASK32, 0], **i64)
     bits = philox4x32_10(counter, key).reshape(T, B, 4 * words)[..., :K]
     return (bits & 0x7FFFFF).to(_F32) * (1.0 / (1 << 23))
@@ -103,7 +116,10 @@ def wavernn_generate_reference(params: Dict, cfg: WaveRNNConfig, cond: torch.Ten
     """Plain PyTorch version of K4, step by step, with the kernel's numerics
     and its Philox uniforms.  Returns (B, T) int32 indices; with
     ``margins``, also (B, T) float32 tensors of each step's gap between the
-    two largest scores and its largest |score| (what a near-tie test reads)."""
+    two largest scores and its largest |score| (what a near-tie test reads).
+    The dual output: ``dual_generate_reference``."""
+    if cfg.dual:
+        return dual_generate_reference(params, cfg, cond, seed, temperature, margins)
     B, T, _ = cond.shape
     H, K = cfg.hidden_units, cfg.n_classes
     dev = cond.device
@@ -145,14 +161,33 @@ def wavernn_generate_reference(params: Dict, cfg: WaveRNNConfig, cond: torch.Ten
     return (out, gap, scale) if margins else out
 
 
+def dual_generate_reference(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
+                            seed: int, temperature: float = 1.0, margins: bool = False):
+    """Plain PyTorch version of the dual instantiation (``dual_sampler``,
+    the kernel's numerics) with its Philox uniforms: head 0 the coarse, head
+    1 the fine.  Returns (B, T) int32 16-bit samples u16 = c * 256 + f; with
+    ``margins``, also (B, T, 2) float32 tensors of each head's gap between
+    its two largest scores and its largest |score|."""
+    B, _, _ = cond.shape
+
+    def gumbel(t0: int, n: int, head: int) -> torch.Tensor:
+        u = philox_uniforms(seed, t0, n, B, cfg.n_classes, cond.device, head=head)
+        return -torch.log(-torch.log(u + 1e-9) + 1e-9)
+
+    return dual_sampler(params, cfg, cond, gumbel if temperature > 0 else None, temperature,
+                        margins)
+
+
 def first_divergence(got: torch.Tensor, want: torch.Tensor, gap: torch.Tensor,
                      scale: torch.Tensor, rel: float = NEAR_TIE_REL) -> Tuple[List[int], bool]:
     """Hold the kernel's indices ``got`` (B, T) against the plain version's
     ``want`` with its ``margins`` (``gap``, ``scale``): every index before a
     row's first difference matches by definition, and the difference is
     accepted if the plain version's top-two gap there is below ``rel`` times
-    its largest |score|.  Returns (first differing step of each row, -1 where
-    none; whether every row passes)."""
+    its largest |score|.  With margins of the dual output's two heads (B, T,
+    2), a difference is judged by the coarse head where the coarse bytes
+    differ, else by the fine head.  Returns (first differing step of each
+    row, -1 where none; whether every row passes)."""
     got, want = got.cpu(), want.cpu()
     gap, scale = gap.cpu(), scale.cpu()
     steps, ok = [], True
@@ -163,31 +198,44 @@ def first_divergence(got: torch.Tensor, want: torch.Tensor, gap: torch.Tensor,
             continue
         t = int(diff[0])
         steps.append(t)
-        ok &= bool(gap[b, t] < rel * scale[b, t])
+        if gap.dim() == 3:
+            head = 0 if int(got[b, t]) >> 8 != int(want[b, t]) >> 8 else 1
+            ok &= bool(gap[b, t, head] < rel * scale[b, t, head])
+        else:
+            ok &= bool(gap[b, t] < rel * scale[b, t])
     return steps, ok
 
 
 def plan(lib: ctypes.CDLL, batch: int, hidden: int, n_classes: int,
-         fc_dim: int) -> Tuple[int, int, int, int, int]:
+         fc_dim: int, dual: bool = False) -> Tuple[int, int, int, int, int]:
     """(blocks, hidden units per block, blocks per cluster, fc1 values summed
     per pass, dynamic shared bytes) of one K4 launch on the current CUDA
-    device; raises when the shapes cannot run there."""
+    device; raises when the shapes cannot run there.  ``dual``: of the dual
+    instantiation (``fc_dim`` unused: its heads' first layers are H/2 wide,
+    summed in one pass)."""
     vals = [ctypes.c_int() for _ in range(5)]
-    fn = lib.wavernn_plan
+    fn = lib.wavernn_dual_plan if dual else lib.wavernn_plan
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 5
     fn.restype = ctypes.c_int
     err = fn(batch, hidden, n_classes, fc_dim, *(ctypes.byref(v) for v in vals))
-    _build.check(lib, err, f"wavernn_plan for B={batch} H={hidden} K={n_classes} fc={fc_dim}")
+    _build.check(lib, err, f"{'wavernn_dual_plan' if dual else 'wavernn_plan'} for B={batch} "
+                 f"H={hidden} K={n_classes} fc={fc_dim}")
     return tuple(v.value for v in vals)
 
 
 def cuda_wavernn_generate(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
                           seed: int, temperature: float = 1.0) -> torch.Tensor:
     """Generate mu-law sample indices (B, T) int32 for all steps in one
-    kernel launch (K4); the plain version for CPU tensors."""
+    kernel launch (K4), or for the dual output 16-bit samples u16 = c * 256
+    + f (its instantiation of the kernel); the plain version for CPU
+    tensors.  A launch counts the rows x samples it renders under
+    ``wavernn.steps``."""
     if cond.device.type == "cpu":
         return wavernn_generate_reference(params, cfg, cond, seed, temperature)
-    return launch(_build.load("wavernn"), params, cfg, cond, seed, temperature)
+    lib = _build.load("wavernn")
+    if cfg.dual:
+        return launch_dual(lib, params, cfg, cond, seed, temperature)
+    return launch(lib, params, cfg, cond, seed, temperature)
 
 
 cuda_wavernn_generate.launches = 0
@@ -239,4 +287,56 @@ def launch(lib: ctypes.CDLL, params: Dict, cfg: WaveRNNConfig, cond: torch.Tenso
                  B, T, H, K, FC, grid, units, cluster, stage_rows, smem, _stream(dev))
         _build.check(lib, err, "wavernn launch")
     _build.count_launch(cuda_wavernn_generate)
+    count("wavernn.steps", B * T)
+    return out
+
+
+def launch_dual(lib: ctypes.CDLL, params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
+                seed: int, temperature: float) -> torch.Tensor:
+    """``launch`` for the dual instantiation: the conditioning gates and the
+    masked input weights of [c~_{t-1}, f~_{t-1}, c~_t] made here, the
+    weights checked, the kernel launched once on the current stream."""
+    dev = cond.device
+    if dev.type != "cuda":
+        raise ValueError(f"the wavernn kernel runs on CUDA tensors, got {dev}")
+    if cond.dim() != 3 or cond.shape[2] != cfg.cond_dim or cond.shape[1] < 1:
+        raise ValueError(f"cond {tuple(cond.shape)} is not (B, T >= 1, {cfg.cond_dim})")
+    B, T, _ = cond.shape
+    H, K = cfg.hidden_units, cfg.n_classes
+    Hh = H // 2
+    want = {("gru", "w_ih"): (3 * H, 3 + cfg.cond_dim), ("gru", "b_ih"): (3 * H,),
+            ("gru", "w_hh"): (3 * H, H), ("gru", "b_hh"): (3 * H,),
+            ("O1", "w"): (Hh, Hh), ("O1", "b"): (Hh,), ("O2", "w"): (K, Hh), ("O2", "b"): (K,),
+            ("O3", "w"): (Hh, Hh), ("O3", "b"): (Hh,), ("O4", "w"): (K, Hh), ("O4", "b"): (K,)}
+    for (net, name), shape in want.items():
+        t = params[net][name]
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{net}.{name} {tuple(t.shape)} is not {shape}")
+        if t.device != dev:
+            raise ValueError(f"{net}.{name} is on {t.device}, cond on {dev}")
+
+    with torch.cuda.device(dev):
+        f = lambda t: t.to(_F32).contiguous()
+        gates = f(cond_gates(params, cfg, cond.to(_F32)))
+        weights = [f(dual_input_weights(params, cfg)), f(params["gru"]["w_hh"]),
+                   f(params["gru"]["b_hh"])]
+        weights += [f(params[k][n]) for k in ("O1", "O2", "O3", "O4") for n in ("w", "b")]
+        grid, units, cluster, _, smem = plan(lib, B, H, K, 0, dual=True)
+        out = torch.empty((B, T), dtype=torch.int32, device=dev)
+        # exchange scratch, 0 at launch: per head and step parity the cluster
+        # partials of the head's first layer (H/2 values a row) from the
+        # clusters of its half, then the half's h; then the count of stores
+        words = (grid // 2 // cluster) * B * Hh + B * Hh
+        xbuf = torch.zeros((4 * words + 1,), dtype=torch.int64, device=dev)
+        ptrs = [gates, *weights, out, xbuf]
+
+        fn = lib.wavernn_dual_generate_f32
+        fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_uint32, ctypes.c_float]
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        err = fn(*(_ptr(t) for t in ptrs), seed & _MASK32, float(temperature),
+                 B, T, H, K, grid, units, cluster, smem, _stream(dev))
+        _build.check(lib, err, "wavernn dual launch")
+    _build.count_launch(cuda_wavernn_generate)
+    count("wavernn.steps", B * T)
     return out

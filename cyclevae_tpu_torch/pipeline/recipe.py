@@ -117,7 +117,7 @@ def run_stages(stages: str, exp: ExperimentConfig, paths: RecipePaths,
                vocoder_resume: str = None,
                vocoder_temperature: float = 0.8,
                vocoder_multispk: bool = False,
-               vocoder_lr_decay: bool = False, device=None):
+               vocoder_lr_decay: bool = False, vocoder_dual: bool = False, device=None):
     device = resolve_device(device)
     spk_src = exp.model.spk_src
     spk_trg = exp.model.spk_trg
@@ -352,7 +352,7 @@ def run_stages(stages: str, exp: ExperimentConfig, paths: RecipePaths,
         from .vocoder_stage import eval_copy_synthesis, run_train_vocoder
         spks = [spk_src, spk_trg] if vocoder_multispk else [spk_trg]
         vcfg = WaveRNNConfig(hidden_units=vocoder_hidden_units,
-                             n_spk=len(spks) if vocoder_multispk else 0)
+                             n_spk=len(spks) if vocoder_multispk else 0, dual=vocoder_dual)
         wavs, feats, spk_ids = [], [], []
         for si, spk in enumerate(spks):
             w, h = paths.wavs(spk), paths.h5s(spk)
@@ -365,7 +365,8 @@ def run_stages(stages: str, exp: ExperimentConfig, paths: RecipePaths,
             feats += h
             spk_ids += [si] * len(w)
         name = "multispk" if vocoder_multispk else spk_trg
-        vexpdir = os.path.join(paths.work, "exp", f"vocoder_{name}_hu{vcfg.hidden_units}")
+        vexpdir = os.path.join(paths.work, "exp", f"vocoder_{name}_hu{vcfg.hidden_units}"
+                               + ("_dual" if vocoder_dual else ""))
         res = run_train_vocoder(vcfg, wavs, feats, vexpdir, epochs=vocoder_epochs,
                                 clip_frames=vocoder_clip_frames, resume=vocoder_resume,
                                 spk_ids=spk_ids if vocoder_multispk else None,
@@ -414,6 +415,9 @@ def main(argv=None):
                         "speaker-code conditioning (one shared model)")
     p.add_argument("--vocoder-lr-decay", action="store_true",
                    help="cosine lr decay to lr/10 over the run")
+    p.add_argument("--vocoder-dual", action="store_true",
+                   help="the published WaveRNN's output: 16-bit samples from a coarse and a "
+                        "fine 8-bit softmax (default: one mu-law softmax)")
     p.add_argument("--device", default=None,
                    help="torch device of stages 4, 5, 6, i and v (default: the current CUDA "
                         "device; 'cpu' runs the kernels' plain versions)")
@@ -426,6 +430,9 @@ def main(argv=None):
         exp.train.resume = args.resume
     paths = RecipePaths(wav_root=args.wav_root, work=args.work,
                         n_train=args.n_train)
+    # the dual output is the port's alone: its keyword is passed only when
+    # asked for, so a command line both recipes take gives the same keywords
+    dual = {"vocoder_dual": True} if args.vocoder_dual else {}
     run_stages(args.stage, exp, paths, conf_dir=args.conf_dir,
                n_jobs=args.n_jobs, decode_epoch=args.decode_epoch,
                vocoder_epochs=args.vocoder_epochs,
@@ -436,6 +443,7 @@ def main(argv=None):
                vocoder_temperature=args.vocoder_temperature,
                vocoder_multispk=args.vocoder_multispk,
                vocoder_lr_decay=args.vocoder_lr_decay,
+               **dual,
                device=args.device)
 
 

@@ -3,8 +3,8 @@
 PyTorch counterpart of ``cyclevae_tpu/pipeline/vocoder_stage.py``:
 teacher-forced training over wav/feature pairs of the feature store
 (``sample_clips``, ``run_train_vocoder``: a cuDNN GRU on the card),
-checkpointing and resume, mu-law AR synthesis (``synthesize_vocoder``: the
-CUDA kernel K4 on the card), the conditioning of a converted utterance
+checkpointing and resume, AR synthesis (``synthesize_vocoder``: the CUDA
+kernel K4 on the card; mu-law, or 16-bit from the dual output), the conditioning of a converted utterance
 (``converted_conditioning``) and copy-synthesis scoring
 (``eval_copy_synthesis``: WORLD re-analysis and DTW MCD on the host).
 """
@@ -30,6 +30,7 @@ from ..models.wavernn import (
     init_wavernn,
     mulaw_decode,
     n_samples_for,
+    pcm16_decode,
     upsample_cond,
     wavernn_loss,
 )
@@ -188,7 +189,9 @@ def synthesize_vocoder(params: Dict, cfg: WaveRNNConfig, feats: np.ndarray,
     Runs on ``device`` (CUDA by default).  ``use_pallas`` samples with
     ``cuda_wavernn_generate`` (the kernel on a CUDA device; its plain version
     with the kernel's Philox uniforms on the CPU), else with the plain
-    ``generate_reference`` and a ``torch.Generator`` seeded with ``seed``."""
+    ``generate_reference`` and a ``torch.Generator`` seeded with ``seed``.
+    The samples are decoded by the model's output layer: mu-law indices, or
+    the dual output's 16-bit samples (``cfg.dual``)."""
     device = resolve_device(device)
     feats = np.asarray(feats, np.float32)
     if cfg.n_spk > 0:
@@ -209,7 +212,9 @@ def synthesize_vocoder(params: Dict, cfg: WaveRNNConfig, feats: np.ndarray,
                 idx = generate_reference(
                     params, cfg, cond[0], temperature,
                     generator=torch.Generator(device=device).manual_seed(seed))
-        return fetch(mulaw_decode(idx, cfg.n_classes)).numpy()
+        with span("vocoder.assemble"):
+            wave = pcm16_decode(idx) if cfg.dual else mulaw_decode(idx, cfg.n_classes)
+        return fetch(wave).numpy()
 
 
 def converted_conditioning(src_feat: np.ndarray, cvmcep: np.ndarray,

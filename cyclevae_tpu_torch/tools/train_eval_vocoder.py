@@ -43,6 +43,8 @@ def main(argv=None) -> dict:
     p.add_argument("--lr-decay", action="store_true",
                    help="cosine-decay the lr to lr/10 over the run")
     p.add_argument("--resume", default=None, help="checkpoint to resume training from")
+    p.add_argument("--dual", action="store_true",
+                   help="the published WaveRNN's dual coarse/fine 16-bit output")
     p.add_argument("--out", default=None)
     add_device_arg(p)
     args = p.parse_args(argv)
@@ -70,8 +72,9 @@ def main(argv=None) -> dict:
     if not (len(wavs) == len(feats) and wavs):
         raise RuntimeError("run stages 1-2 first: no wav/feature pairs for " + spk)
 
-    cfg = WaveRNNConfig(hidden_units=args.hidden_units)
-    expdir = os.path.join(args.work, "exp", f"vocoder_{spk}_hu{cfg.hidden_units}")
+    cfg = WaveRNNConfig(hidden_units=args.hidden_units, dual=args.dual)
+    expdir = os.path.join(args.work, "exp", f"vocoder_{spk}_hu{cfg.hidden_units}"
+                          + ("_dual" if args.dual else ""))
     before = kernel_launches()
     if args.eval_only:
         # either package's checkpoint: the same nested dict, torch layout

@@ -59,6 +59,8 @@ def main(argv=None) -> dict:
     p.add_argument("--spk-id", type=int, default=1,
                    help="speaker code for rendering (multispk training order is "
                         "[spk_src, spk_trg]; conversion targets spk_trg = 1)")
+    p.add_argument("--dual", action="store_true",
+                   help="the vocoder has the dual coarse/fine 16-bit output")
     p.add_argument("--out", default=None)
     add_device_arg(p)
     args = p.parse_args(argv)
@@ -109,7 +111,7 @@ def main(argv=None) -> dict:
     cvgv_mean = read_store(paths.stats(spk_src), f"cvgv_mean_{model_id}")
 
     # --- trained neural vocoder (either package's checkpoint) -------------
-    vcfg = WaveRNNConfig(hidden_units=args.hidden_units, n_spk=args.n_spk)
+    vcfg = WaveRNNConfig(hidden_units=args.hidden_units, n_spk=args.n_spk, dual=args.dual)
     vparams = wavernn_params_from_jax(
         load_checkpoint(latest_checkpoint(args.vocoder_exp))["params"], device=dev)
 
