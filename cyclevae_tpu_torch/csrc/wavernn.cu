@@ -82,18 +82,21 @@
 //
 // Built with -DWAVERNN_PROFILE, thread 0 of block 0 sums the SM cycles each
 // phase of a step takes (wavernn_profile_read; ops/wavernn_phases.py names
-// and prints them; each PROF_MARK(i) closes phase i).
+// and prints them; each PROF_MARK(i) closes phase i); in the dual, thread 0
+// of the first block of each half, per phase of the step (DUAL_MARK,
+// wavernn_profile_read_dual, wavernn_phases --dual).
 //
 // The second instantiation, wavernn_kernel_dual: the published WaveRNN's
 // dual softmax over 16-bit audio (Kalchbrenner et al., arXiv:1802.08435,
-// eq. 2; models/wavernn.py; no TPU kernel has it).  Each of its phases runs
-// K4's stages through the same device functions (the weight staging, the
-// GRU cell, the first-layer partials and their sum in the cluster, the
-// noise, the fixed-order sum, the logits, the argmax key; Philox,
-// exchange.cuh) and the same cooperative launch in clusters; only the poll
-// of tagged words is written in each (in a device function it slows K4 by
-// 3.5%).  wavernn_kernel computes what it did.  Per step t, for the batch rows b (h = 0, c = 128, f = 0 before
-// step 0; Hh = H/2; x~ = x / 127.5 - 1, a true division):
+// eq. 2; models/wavernn.py; no TPU kernel has it).  It shares K4's device
+// functions where a stage has K4's shape (the weight staging, the GRU cell,
+// the first-layer partials and their sum in the cluster, the fixed-order
+// sum, the argmax key; Philox, exchange.cuh), has its own where its
+// schedule needs another (the split Whh products, the value-split logits,
+// the noise of one class), and the same cooperative launch in clusters; the poll of tagged
+// words on the chain is written in each kernel (in a device function it
+// slows K4 by 3.5%).  Per step t, for the batch rows b (h = 0, c = 128, f =
+// 0 before step 0; Hh = H/2; x~ = x / 127.5 - 1, a true division):
 //   gh  = h_{t-1} . Whh^T + b_hh                     (both halves, off the chain)
 //   phase 0, the coarse units [0, Hh): gx = ((cond_gates + c~_{t-1} w0)
 //       + f~_{t-1} w1) + c~_{t-1} w2 (each product and sum rounded; w the
@@ -102,22 +105,44 @@
 //   phase 1, the fine units [Hh, H): the same with c~_t in the last input,
 //       y_f; O3, O4, b3, b4, noise g1; f_t = argmax; out[b, t] = c_t * 256 + f_t.
 // The coarse noise is K4's: counter (t, b, k/4, 0); the fine (t, b, k/4, 1).
-// What bounds it: as K4, the chain of dependent steps, now two a sample: each
-// phase is K4's step (finish the half's units, the head's first-layer
-// partials summed in the cluster and pushed through L2 with h, a fixed-order
-// sum, the rank's logits, the argmax merged in the cluster), with H/2-wide
-// first layers (O1, O3 are H/2 x H/2, not fc x H).  The design:
+// What bounds it: as K4, the chain of dependent steps, now two a sample,
+// each with H/2-wide first layers (O1, O3 are H/2 x H/2, not fc x H).
+// Measured on its first design (wavernn_phases --dual), a phase waited not
+// for data but for moving it: every block read the whole first layer of the
+// head from L2 (~3 TB/s for the same words) and every class group all of it
+// from shared memory.  The design:
 //   * Each half has its own blocks (U = 8 units, Hh / U of them, padded to
 //     whole clusters), so a phase's first-layer partials come from the
-//     clusters of its half; every cluster computes both heads' logits, each
-//     rank a slice of the classes of each (O2 and O4 slices in shared
-//     memory), and so reaches c_t and f_t itself, with no third exchange.
-//   * gh for every unit is computed once a step, while the fine head's
-//     candidates cross the cluster (K4's place): both halves take h_{t-1}.
-//     The noise of each head is drawn while thread 0 waits for the stores.
+//     clusters of its half; every cluster computes both heads' logits and so
+//     reaches c_t and f_t itself.
+//   * The first layer is split by value across the cluster: rank r owns
+//     Cs = ceil(Hh / cs) (up to 4) values of each row.  The blocks of the
+//     half push their partials of those values to rank r, which sums the
+//     cluster's cs partials in rank order and stores them; in every cluster
+//     rank r then polls only its values from the NCh clusters (1/cs of the
+//     words), sums them in a fixed order, and forms their partial logits of
+//     every class (a thread to a class; O2 / O4 columns of its values in
+//     shared memory, f read by all lanes at once).  Each class's cs partial
+//     logits go to the rank that owns the class (st.async, its mbarrier
+//     counting the bytes), which sums them in rank order, adds the bias and
+//     the noise, and pushes its best (score, class) to every rank as K4.
+//   * A phase's chain carries only what decides its sample.  gh for every
+//     unit is computed once a step in two parts, each lane's sums carried
+//     between them in shared memory (gate_dots' order, so its gh bit for
+//     bit; rows past kBatchChunk whole in the second part): at the end of
+//     each phase, over the columns of that phase's half of h_t, while the
+//     phase's candidates cross the cluster.  Each half's h_t rides in its
+//     phase's poll with the values (the same round trip through L2).  The
+//     lanes that score a row draw its noise before the values can arrive.
+//     No count of the stores precedes the poll (it cost a round trip
+//     through L2 a phase): the tags decide, and since a rank's scores need
+//     every rank's partial logits, no block passes a phase before its
+//     cluster has merged the last one's samples, which orders the reuse of
+//     every buffer in the cluster.
 //   * Exchange regions by head and step parity; a word carries its step.  A
-//     block writes a region's step t+2 only after it has read words that
-//     every reader of step t wrote after reading step t.
+//     block writes a region's step t+2 only after its cluster has consumed
+//     words that every reader of step t wrote after reading step t (through
+//     the samples the cluster merged).
 
 #include <algorithm>
 
@@ -169,8 +194,24 @@ __device__ unsigned long long g_prof[kPhases];
       prof_t = now;                                             \
     }                                                           \
   } while (0)
+// the dual's: marks of one phase, summed by thread 0 of the first block of
+// each half; [half][phase][mark], then [half][phase] the poll passes that
+// found a stale word, summed over the block's threads
+constexpr int kDualMarks = 11;
+__device__ unsigned long long g_prof_dual[2 * 2 * kDualMarks + 4];
+#define DUAL_MARK(i)                                            \
+  do {                                                          \
+    if (kl == 0 && threadIdx.x == 0) {                          \
+      const long long now = clock64();                          \
+      prof_s[p * kDualMarks + (i)] += now - prof_t;             \
+      prof_t = now;                                             \
+    }                                                           \
+  } while (0)
 #else
 #define PROF_MARK(i) \
+  do {               \
+  } while (0)
+#define DUAL_MARK(i) \
   do {               \
   } while (0)
 #endif
@@ -258,7 +299,7 @@ __device__ __forceinline__ void gate_dots(const float4 (&wreg)[3][kRegIters], co
 // f values owned (summed over the cluster) by each rank: a multiple of 4
 __host__ __device__ inline int rank_share(int BFs, int cs) { return (int)up4((BFs + cs - 1) / cs); }
 
-// ---- the stages both instantiations run: K4's step, and each phase of the dual's ----
+// ---- the stages of K4's step; the dual's phases run most of them too ----
 
 // the three Whh rows g*H + j of unit j into registers, float4 it at 128*it + 4*lane
 __device__ __forceinline__ void load_whh(float4 (&wreg)[3][kRegIters], const float* whh, int H,
@@ -753,9 +794,10 @@ struct DualArgs {
   const float* o4;     // (K, Hh)
   const float* b4;     // (K)
   int* out;            // (B, T) c * 256 + f
-  // (2 heads, 2 parities, XW) + 1 tagged words: the NCh cluster partials of
-  // the head's first layer (B*Hh each), then the half's h (B rows of Hh);
-  // then the count of the blocks' arrivals
+  // (2 heads, 2 parities, XW) tagged words: the head's first layer,
+  // summed in each cluster of its half, by the rank that owns the values
+  // ([rank][cluster][b][c], B*Cs words each, 0 past the rank's values), then
+  // the half's h (B rows of Hh)
   unsigned long long* xbuf;
   unsigned seed;
   float temp;
@@ -764,42 +806,173 @@ struct DualArgs {
   int Kc;              // classes of a rank (a multiple of 4)
 };
 
+// first-layer values of a row that a rank owns (the last ranks may own
+// fewer, or none), and the row stride of its slice of O2 / O4 in shared
+// memory (an odd number of float4s: eight lanes' float4 loads of eight
+// classes fall in distinct banks)
+__host__ __device__ inline int dual_share(int Hh, int cs) { return (int)up4((Hh + cs - 1) / cs); }
+__host__ __device__ inline int dual_w2_stride(int Cs) { return Cs / 4 % 2 ? Cs : Cs + 4; }
+// each lane's Whh sums of the first rows, carried across a phase's wait: [u][row][g][lane]
+__host__ __device__ inline size_t dual_acc_floats(int B) { return (size_t)kU * (B < kBatchChunk ? B : kBatchChunk) * 3 * 32; }
+
 struct DualSmem {  // offsets in floats; every array starts on 16 bytes
-  size_t stage, h, f, recv, hown, bhh, win, w1, b1, w2, b2, gh, noise, score, cand, bars,
+  size_t stage, h, f, recv, lrecv, hown, bhh, win, cx, w1, b1, w2, b2, gh, acc, noise, cand, bars,
       total_bytes;
 };
 
 __host__ __device__ inline DualSmem dual_smem_layout(int B, int H, int K, int cs, int NCh) {
-  const size_t Hh = H / 2, BFs = (size_t)B * Hh, Kc = up4((K + cs - 1) / cs), U = kU;
+  const size_t Hh = H / 2, Kc = up4((K + cs - 1) / cs), U = kU, Cs = dual_share((int)Hh, cs);
+  const size_t SW = B * Cs, Ws = dual_w2_stride((int)Cs);
   DualSmem s;
-  s.stage = 0;                                       // NCh*BFs  the phase's cluster partials, c-major
-  s.h = s.stage + NCh * BFs;                         // B*H      h_t, both halves
-  s.f = s.h + (size_t)B * H;                         // BFs      relu(y O^T + b) of the phase's head
-  s.recv = s.f + BFs;                                // cs*share the cluster's partials of this rank's values
-  s.hown = s.recv + (size_t)cs * rank_share((int)BFs, cs);  // B*U  own units' h (the carry)
+  s.stage = 0;                                       // NCh*SW   the rank's values, as each cluster summed them
+  s.h = s.stage + NCh * SW;                          // B*H      h_t, both halves
+  s.f = s.h + (size_t)B * H;                         // SW       relu(y O^T + b) of the rank's values
+  s.recv = s.f + SW;                                 // cs*SW    the cluster's partials of the rank's values
+  s.lrecv = s.recv + cs * SW;                        // cs*B*Kc  every rank's partial logits of this rank's classes
+  s.hown = s.lrecv + cs * B * Kc;                    // B*U      own units' h (the carry)
   s.bhh = s.hown + up4((size_t)B * U);               // 3U       own rows of b_hh
   s.win = s.bhh + up4(3 * U);                        // 9U       [g][i][u] = win[g*H+j0+u][i]
-  s.w1 = s.win + up4(9 * U);                         // U*Hh     [u][c] = O[c][jl+u] of the block's half
-  s.b1 = s.w1 + U * Hh;                              // 2*Hh     b1, b3
-  s.w2 = s.b1 + 2 * Hh;                              // 2*Kc*Hh  [head][kk][c] = O2|O4[k0+kk][c]
-  s.b2 = s.w2 + 2 * Kc * Hh;                         // 2*Kc     b2, b4 of the rank's classes
+  s.cx = s.win + up4(9 * U);                         // 3*B*U    [g][thread] the next step's conditioning gates
+  s.w1 = s.cx + up4(3 * (size_t)B * U);              // U*Hh     [u][c] = O[c][jl+u] of the block's half
+  s.b1 = s.w1 + U * Hh;                              // 2*SW     [head][b][cc] = b1|b3[c0+cc]
+  s.w2 = s.b1 + 2 * SW;                              // 2*K*Ws   [head][k][cc] = O2|O4[k][c0+cc]
+  s.b2 = s.w2 + 2 * (size_t)K * Ws;                  // 2*Kc     b2, b4 of the rank's classes
   s.gh = s.b2 + 2 * Kc;                              // B*3U     own gate rows of h Whh^T + b_hh
-  s.noise = s.gh + up4((size_t)B * 3 * U);           // B*Kc     Gumbel noise of the coming sample
-  s.score = s.noise + (size_t)B * Kc;                // B*Kc     scores of the rank's classes
-  s.cand = s.score + (size_t)B * Kc;                 // 2*B*cs*2 every rank's best key of each row, per head
-  s.bars = s.cand + 2 * up4((size_t)B * cs * 2);     // 3 mbarriers (8 bytes each)
+  s.acc = s.gh + up4((size_t)B * 3 * U);             // U*R*3*32 each lane's Whh sums of rows [0, R), R = min(B, 4)
+  s.noise = s.acc + dual_acc_floats(B);              // B*Kc     Gumbel noise of the rank's classes
+  s.cand = s.noise + (size_t)B * Kc;                 // 2*B*cs*2 every rank's best key of each row, per head
+  s.bars = s.cand + 2 * up4((size_t)B * cs * 2);     // 4 mbarriers (8 bytes each)
   s.total_bytes = (s.bars + 8) * sizeof(float);
   return s;
 }
 
 __device__ __forceinline__ float scaled_byte(int v) { return __fsub_rn(__fdiv_rn((float)v, 127.5f), 1.0f); }
 
+// gate_dots<R> for the dual in parts: each lane's sums of its unit's three
+// Whh rows over the columns [i0, i1) of h, for the rows b0 + c (rows past
+// B repeat row B-1), from 0 (kFrom0) or from acc ([row][g][lane] of the
+// warp's, the lane's own words), then stored there or (kFinish) summed over
+// the warp into gh_s as gate_dots ends.  A lane meets its float4s in
+// gate_dots' order, so [0, Hh) then [Hh, H) gives its gh bit for bit.
+template <int R, bool kFrom0, bool kFinish>
+__device__ __forceinline__ void whh_part(const float4 (&wreg)[3][kRegIters], const float* h_s,
+                                         float* acc, const float* bhh_s, float* gh_s, int B, int H,
+                                         int i0, int i1, int b0, int u, int lane) {
+  int row[R];
+#pragma unroll
+  for (int c = 0; c < R; ++c) row[c] = min(b0 + c, B - 1);
+  float sum[3][R];
+#pragma unroll
+  for (int c = 0; c < R; ++c)
+#pragma unroll
+    for (int g = 0; g < 3; ++g) sum[g][c] = kFrom0 ? 0.f : acc[(3 * row[c] + g) * 32 + lane];
+#pragma unroll
+  for (int it = 0; it < kRegIters; ++it) {
+    const int i = 128 * it + 4 * lane;
+    if (i >= i0 && i < i1) {
+#pragma unroll
+      for (int c = 0; c < R; ++c) {
+        const float4 v = *reinterpret_cast<const float4*>(h_s + (size_t)row[c] * H + i);
+#pragma unroll
+        for (int g = 0; g < 3; ++g) sum[g][c] = dot4(wreg[g][it], v, sum[g][c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < R; ++c) {
+    if (kFinish) {
+      const float s0 = warp_sum(sum[0][c]), s1 = warp_sum(sum[1][c]), s2 = warp_sum(sum[2][c]);
+      if (lane == 0 && b0 + c < B) {
+        float* gh = gh_s + (b0 + c) * 3 * kU;
+        gh[u] = s0 + bhh_s[u];
+        gh[kU + u] = s1 + bhh_s[kU + u];
+        gh[2 * kU + u] = s2 + bhh_s[2 * kU + u];
+      }
+    } else {  // a repeated row writes its row's sums again
+#pragma unroll
+      for (int g = 0; g < 3; ++g) acc[(3 * row[c] + g) * 32 + lane] = sum[g][c];
+    }
+  }
+}
+
+// the dual's gh of unit u (its Whh rows in wreg) from h_s (B rows of H):
+// each lane's sums of rows [0, kBatchChunk) over the coarse columns [0, Hh)
+// into acc_s (dual_acc_floats), then carried on over the fine columns and
+// finished, further rows whole
+__device__ __forceinline__ void gh_coarse(const float4 (&wreg)[3][kRegIters], const float* h_s,
+                                          float* acc_s, int B, int H, int u, int lane) {
+  float* acc = acc_s + (size_t)u * min(B, kBatchChunk) * 3 * 32;
+  if (B == 1) whh_part<1, true, false>(wreg, h_s, acc, nullptr, nullptr, B, H, 0, H / 2, 0, u, lane);
+  else whh_part<kBatchChunk, true, false>(wreg, h_s, acc, nullptr, nullptr, B, H, 0, H / 2, 0, u, lane);
+}
+__device__ __forceinline__ void gh_fine(const float4 (&wreg)[3][kRegIters], const float* h_s,
+                                        float* acc_s, const float* bhh_s, float* gh_s, int B, int H,
+                                        int u, int lane) {
+  float* acc = acc_s + (size_t)u * min(B, kBatchChunk) * 3 * 32;
+  if (B == 1) whh_part<1, false, true>(wreg, h_s, acc, bhh_s, gh_s, B, H, H / 2, H, 0, u, lane);
+  else whh_part<kBatchChunk, false, true>(wreg, h_s, acc, bhh_s, gh_s, B, H, H / 2, H, 0, u, lane);
+  for (int b0 = kBatchChunk; b0 < B; b0 += kBatchChunk) {
+    if (B - b0 == 1) gate_dots<1>(wreg, h_s, bhh_s, gh_s, B, H, H, b0, u, lane);
+    else gate_dots<kBatchChunk>(wreg, h_s, bhh_s, gh_s, B, H, H, b0, u, lane);
+  }
+}
+
+// the Gumbel noise draw_noise gives class k of row b at step t: word k % 4 of
+// the Philox counter (t, b, k / 4, head)
+__device__ __forceinline__ float class_noise(int t, int b, int k, unsigned head, unsigned seed) {
+  const uint4 bits = philox4x32_10(make_uint4((unsigned)t, (unsigned)b, (unsigned)k >> 2, head), seed, 0u);
+  const int w = k & 3;
+  return gumbel(w == 0 ? bits.x : w == 1 ? bits.y : w == 2 ? bits.z : bits.w);
+}
+
+// 4 bytes global -> shared, asynchronous (cp.async.wait_all before reading them)
+__device__ __forceinline__ void cp_async4(float* smem_dst, const float* gmem_src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(smem_dst)), "l"(gmem_src)
+               : "memory");
+}
+
+__device__ __forceinline__ void push1(unsigned dst, float v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(dst),
+               "f"(v), "r"(bar)
+               : "memory");
+}
+
+// the rank's partial logits of a head for the rows b0 + c (rows past B
+// repeat row B-1): over its values of each row (f_s, Cs apart), every class
+// (w_s, Ws apart), a thread to a class; each pushed to the class's owner
+// rank, [rank][b][kk] of its lrecv_s, counted by its bar_logit
+template <int R>
+__device__ __forceinline__ void push_share_logits(const float* w_s, const float* f_s, float* lrecv_s,
+                                                  unsigned bar_logit, int B, int K, int Kc, int Cs,
+                                                  int Ws, int b0, int rank) {
+  int row[R];
+#pragma unroll
+  for (int c = 0; c < R; ++c) row[c] = min(b0 + c, B - 1);
+  for (int kk = threadIdx.x; kk < K; kk += kThreads) {
+    float acc[R];
+#pragma unroll
+    for (int c = 0; c < R; ++c) acc[c] = 0.f;
+#pragma unroll 2
+    for (int cc = 0; cc < Cs; cc += 4) {
+      const float4 w = load4(w_s + (size_t)kk * Ws + cc);
+#pragma unroll
+      for (int c = 0; c < R; ++c) acc[c] = dot4(w, load4(f_s + (size_t)row[c] * Cs + cc), acc[c]);
+    }
+    const int owner = kk / Kc, kl = kk - owner * Kc;
+#pragma unroll
+    for (int c = 0; c < R; ++c)
+      if (b0 + c < B)
+        push1(remote(smem_addr(lrecv_s + ((size_t)rank * B + b0 + c) * Kc + kl), owner), acc[c],
+              remote(bar_logit, owner));
+  }
+}
+
 __global__ void __launch_bounds__(kThreads) wavernn_kernel_dual(DualArgs a) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) float smem[];
   constexpr int U = kU;
   const int B = a.B, T = a.T, H = a.H, K = a.K, cs = a.cs, Kc = a.Kc;
-  const int Hh = H / 2, FCs = Hh, BFs = B * FCs;  // H % 8 == 0: Hh a multiple of 4
+  const int Hh = H / 2, BFs = B * Hh;  // H % 8 == 0: Hh a multiple of 4
   const size_t H3 = 3 * (size_t)H;
   const int k = blockIdx.x, half = k / a.Ghp, kl = k % a.Ghp;
   const int jl = kl * U, j0 = half * Hh + jl;  // the block's first unit in its half, in h
@@ -807,7 +980,9 @@ __global__ void __launch_bounds__(kThreads) wavernn_kernel_dual(DualArgs a) {
   const int rank = (int)cluster.block_rank();
   const int nu = max(0, min(U, Hh - jl));      // units this block owns (0 in padding blocks)
   const int k0 = rank * Kc, kn = max(0, min(Kc, K - k0));  // the rank's classes
-  const int share = rank_share(BFs, cs), lo = rank * share, hi = min(BFs, lo + share);
+  // the rank's first-layer values of each row: [c0, c0 + nc) of Cs, SW words a row set
+  const int Cs = dual_share(Hh, cs), c0 = rank * Cs, nc = max(0, min(Cs, Hh - c0));
+  const int SW = B * Cs, Ws = dual_w2_stride(Cs);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const bool sampled = a.temp > 0.f;
   const float tdiv = fmaxf(a.temp, 1e-6f);
@@ -817,6 +992,7 @@ __global__ void __launch_bounds__(kThreads) wavernn_kernel_dual(DualArgs a) {
   float* h_s = smem + L.h;
   float* f_s = smem + L.f;
   float* recv_s = smem + L.recv;
+  float* lrecv_s = smem + L.lrecv;
   float* hown_s = smem + L.hown;
   float* bhh_s = smem + L.bhh;
   float* win_s = smem + L.win;
@@ -825,21 +1001,34 @@ __global__ void __launch_bounds__(kThreads) wavernn_kernel_dual(DualArgs a) {
   float* w2_s = smem + L.w2;
   float* b2_s = smem + L.b2;
   float* gh_s = smem + L.gh;
+  float* cx_s = smem + L.cx;
+  float* acc_s = smem + L.acc;
   float* noise_s = smem + L.noise;
-  float* score_s = smem + L.score;
   unsigned long long* cand_s[2] = {reinterpret_cast<unsigned long long*>(smem + L.cand),
                                    reinterpret_cast<unsigned long long*>(smem + L.cand + up4((size_t)B * cs * 2))};
   const unsigned bar_part = smem_addr(smem + L.bars);
   const unsigned bar_cand[2] = {bar_part + 8, bar_part + 16};
-  const unsigned part_bytes = (unsigned)(cs * max(0, hi - lo) * 4), cand_bytes = (unsigned)(cs * B * 8);
+  const unsigned bar_logit = bar_part + 24;
+  const unsigned part_bytes = (unsigned)(cs * B * nc * 4), logit_bytes = (unsigned)(cs * B * kn * 4);
+  const unsigned cand_bytes = (unsigned)(cs * B * 8);
 
   // ---- weights into registers and shared memory, once per call ----
   float4 wreg[3][kRegIters];  // Whh rows g*H + j0 + warp, float4 it at 128*it + 4*lane
   if (warp < nu) load_whh(wreg, a.whh, H, j0 + warp, lane);
-  stage_columns(w1_s, half ? a.o3 : a.o1, Hh, jl, nu, FCs, FCs);
-  stage_classes(w2_s, b2_s, a.o2, a.b2, k0, kn, Kc, FCs, FCs);
-  stage_classes(w2_s + (size_t)Kc * FCs, b2_s + Kc, a.o4, a.b4, k0, kn, Kc, FCs, FCs);
-  for (int q = threadIdx.x; q < 2 * FCs; q += kThreads) b1_s[q] = (q < FCs ? a.b1 : a.b3)[q % FCs];
+  stage_columns(w1_s, half ? a.o3 : a.o1, Hh, jl, nu, Hh, Hh);
+  for (int q = threadIdx.x; q < 2 * K * Ws; q += kThreads) {
+    const int head = q / (K * Ws), kk = q / Ws % K, cc = q % Ws;
+    w2_s[q] = cc < nc ? (head ? a.o4 : a.o2)[(size_t)kk * Hh + c0 + cc] : 0.f;
+  }
+  for (int q = threadIdx.x; q < 2 * Kc; q += kThreads) {
+    const int kk = q % Kc;
+    b2_s[q] = kk < kn ? (q < Kc ? a.b2 : a.b4)[k0 + kk] : 0.f;
+  }
+  for (int q = threadIdx.x; q < 2 * SW; q += kThreads) {
+    const int cc = q % Cs;
+    b1_s[q] = cc < nc ? (q < SW ? a.b1 : a.b3)[c0 + cc] : 0.f;
+  }
+  for (int q = threadIdx.x; q < cs * SW; q += kThreads) recv_s[q] = 0.f;  // past nc: never pushed
   for (int q = threadIdx.x; q < 9 * U; q += kThreads) {
     const int g = q / (3 * U), i = q / U % 3, u = q % U;
     win_s[q] = u < nu ? a.win[(size_t)(g * H + j0 + u) * 3 + i] : 0.f;
@@ -849,34 +1038,44 @@ __global__ void __launch_bounds__(kThreads) wavernn_kernel_dual(DualArgs a) {
     mbar_init(bar_part);
     mbar_init(bar_cand[0]);
     mbar_init(bar_cand[1]);
+    mbar_init(bar_logit);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_expect(bar_part, part_bytes);  // phase 0 of each: step 0's data
     mbar_expect(bar_cand[0], cand_bytes);
     mbar_expect(bar_cand[1], cand_bytes);
+    mbar_expect(bar_logit, logit_bytes);
   }
 
   // thread q < B*U finishes unit u = q % U of row b = q / U in its half's
   // phase; it keeps the row's samples: c_{t-1}, f_{t-1} and, in phase 1, c_t
   const int fb = threadIdx.x / U, fu = threadIdx.x % U;
   const bool finisher = threadIdx.x < B * U && fu < nu;
-  const int XW = NCh * BFs + B * Hh;  // words of one head's exchange of a step
-  unsigned* count = reinterpret_cast<unsigned*>(a.xbuf + 4 * (size_t)XW);
-  float cx[3] = {0.f, 0.f, 0.f};
+  const size_t PW = (size_t)a.Ghp * SW;  // words of a head's first layer: cs ranks x NCh clusters x SW
+  const size_t XW = PW + (size_t)B * Hh;  // words of one head's exchange of a step
+  const size_t own = (size_t)rank * NCh * SW;  // the rank's words: its values from every cluster
+  // its conditioning gates of the coming step, copied to shared memory a step ahead
+  // (held in registers, they were spilled, and the spill waited for the load)
+  float* cx_own = cx_s + threadIdx.x;  // g at g*B*U
   if (finisher) {
     const float* row = a.gates + (size_t)fb * T * H3 + j0 + fu;
 #pragma unroll
-    for (int g = 0; g < 3; ++g) cx[g] = __ldg(row + g * H);
+    for (int g = 0; g < 3; ++g) cp_async4(cx_own + g * B * U, row + g * H);
   }
-  const int grp = threadIdx.x / kLanesPerClass, sub = threadIdx.x % kLanesPerClass;
-  const int lb0 = grp / Kc, lk0 = grp % Kc, dlb = kClassGroups / Kc, dlk = kClassGroups % Kc;
   int cprev = K / 2, fprev = 0, cnow = K / 2;
   cluster.sync();  // every block of the cluster runs, with its mbarriers set
 
+#ifdef WAVERNN_PROFILE
+  __shared__ long long prof_s[2 * kDualMarks];  // summed here, added to g_prof_dual at the end
+  if (threadIdx.x < 2 * kDualMarks) prof_s[threadIdx.x] = 0;
+  __syncthreads();
+  long long prof_t = clock64();
+  unsigned long long stale[2] = {0, 0};
+#endif
   for (int t = 0; t < T; ++t) {
     const unsigned tag = (unsigned)t + 1;  // the scratch words are 0 at launch
 #pragma unroll 1
     for (int p = 0; p < 2; ++p) {
-      unsigned long long* xdst = a.xbuf + (size_t)(2 * p + (t & 1)) * XW;
+      unsigned long long* xdst = a.xbuf + (2 * p + (t & 1)) * XW;
 
       // ---- the sample this phase waits for: f_{t-1} (phase 0) or c_t (phase 1) ----
       if ((p == 1 || t > 0) && (finisher || threadIdx.x == 0)) {
@@ -894,68 +1093,75 @@ __global__ void __launch_bounds__(kThreads) wavernn_kernel_dual(DualArgs a) {
           fprev = s;
         }
       }
+      DUAL_MARK(0);
 
       if (half == p) {
         // ---- the half's units of h_t ----
         if (finisher) {
           const float x0 = scaled_byte(cprev), x1 = scaled_byte(fprev), x2 = scaled_byte(p ? cnow : cprev);
+          cp_async_wait_all();  // issued a step ago
           float gx[3];
 #pragma unroll
           for (int g = 0; g < 3; ++g) {
             const float* w = win_s + g * 3 * U + fu;
-            gx[g] = __fadd_rn(__fadd_rn(__fadd_rn(cx[g], __fmul_rn(x0, w[0])), __fmul_rn(x1, w[U])),
+            gx[g] = __fadd_rn(__fadd_rn(__fadd_rn(cx_own[g * B * U], __fmul_rn(x0, w[0])), __fmul_rn(x1, w[U])),
                               __fmul_rn(x2, w[2 * U]));
           }
           const float hnew = gru_unit(gx[0], gx[1], gx[2], gh_s + fb * 3 * U, fu, hown_s + threadIdx.x);
-          store_tagged(xdst + NCh * BFs + (size_t)fb * Hh + jl + fu, hnew, tag);
+          store_tagged(xdst + PW + (size_t)fb * Hh + jl + fu, hnew, tag);
         }
         __syncthreads();
+        DUAL_MARK(1);
 
-        // ---- this block's partial of the head's first layer, 4 values to a thread, to their rank ----
+        // ---- this block's partial of the head's first layer, 4 values to a thread, to their owner ----
         for (int pq = 4 * threadIdx.x; pq < BFs; pq += 4 * kThreads) {
-          const int pb = pq / FCs, pc = pq % FCs, owner = pq / share;
-          push4(remote(smem_addr(recv_s + rank * share + (pq - owner * share)), owner),
-                first_layer_partial(hown_s + pb * U, w1_s, FCs, pc), remote(bar_part, owner));
+          const int pb = pq / Hh, pc = pq % Hh, owner = pc / Cs;
+          push4(remote(smem_addr(recv_s + (rank * B + pb) * Cs + pc - owner * Cs), owner),
+                first_layer_partial(hown_s + pb * U, w1_s, Hh, pc), remote(bar_part, owner));
         }
+        DUAL_MARK(2);
 
         // ---- this rank's values: the cluster's cs partials in rank order, stored with the tag ----
         mbar_wait(bar_part, t & 1);
-        if (threadIdx.x == 0) mbar_expect(bar_part, part_bytes);  // the next step's
-        store_rank_sums(recv_s, share, cs, hi - lo, xdst + (size_t)cid * BFs + lo, tag);
+        DUAL_MARK(3);
+        store_rank_sums(recv_s, SW, cs, SW, xdst + own + (size_t)cid * SW, tag);
         if (finisher && t + 1 < T) {  // the next step's conditioning gates, in flight from here
           const float* row = a.gates + ((size_t)fb * T + t + 1) * H3 + j0 + fu;
 #pragma unroll
-          for (int g = 0; g < 3; ++g) cx[g] = __ldg(row + g * H);
+          for (int g = 0; g < 3; ++g) cp_async4(cx_own + g * B * U, row + g * H);
         }
       }
-      __syncthreads();
-      if (threadIdx.x == 0) add_count(count);  // a hint: the tags decide
+      DUAL_MARK(4);
 
-      // ---- the head's noise of this step, drawn while thread 0 waits for every block ----
-      if (sampled) draw_noise(noise_s, B, Kc, k0, t, (unsigned)p, a.seed);
-      if (threadIdx.x == 0) wait_count(count, (unsigned)gridDim.x * (2 * (unsigned)t + p + 1));
-      __syncthreads();
+      // ---- the noise of the rank's classes, drawn by the lanes that score them (a warp to
+      // a row), before the phase's values can have arrived ----
+      if (sampled)
+        for (int b = warp; b < B; b += kWarps)
+          for (int kk = lane; kk < Kc; kk += 32) noise_s[b * Kc + kk] = class_noise(t, b, k0 + kk, (unsigned)p, a.seed);
+      DUAL_MARK(5);
 
-      // ---- the NCh cluster partials and the half's h_t, polled until they carry the tag ----
-      const int np = NCh * BFs / 2, nh = B * Hh / 2;  // word pairs of partials, of h
+      // ---- the rank's values from the NCh clusters and the half's h_t (its Whh products
+      // wait for it at the phase's end, not the sample), polled until they carry the
+      // tag: no count of the stores first (a round trip through L2 more), and no
+      // reader passes a phase before its cluster has merged the last one's samples,
+      // so buffers are reused in order ----
+      const int np = NCh * SW / 2, nh = t + 1 < T ? B * Hh / 2 : 0;  // word pairs of values, of h
       for (int base = 0; base < np + nh; base += kPoll * kThreads) {
-        int src[kPoll];
-        float* dst[kPoll];
+        int src[kPoll], dst[kPoll];  // words of xdst, floats of smem
         unsigned ready = 0;  // bit j: pair j needs no further load
 #pragma unroll
         for (int j = 0; j < kPoll; ++j) {
           const int i = base + threadIdx.x + j * kThreads;
           if (i >= np + nh) {
-            src[j] = 0;
-            dst[j] = stage;
+            src[j] = dst[j] = 0;
             ready |= 1u << j;
           } else if (i < np) {
-            src[j] = 2 * i;
-            dst[j] = stage + 2 * i;
+            src[j] = (int)own + 2 * i;
+            dst[j] = (int)L.stage + 2 * i;
           } else {
             const int w = 2 * (i - np);
-            src[j] = NCh * BFs + w;
-            dst[j] = h_s + (size_t)(w / Hh) * H + p * Hh + w % Hh;
+            src[j] = (int)PW + w;
+            dst[j] = (int)L.h + w / Hh * H + p * Hh + w % Hh;
           }
         }
         ulonglong2 w[kPoll];  // K4's loads (kept in each kernel: see there)
@@ -968,41 +1174,66 @@ __global__ void __launch_bounds__(kThreads) wavernn_kernel_dual(DualArgs a) {
           for (int j = 0; j < kPoll; ++j) {
             if (!(ready >> j & 1) && tag_of(w[j].x) == tag && tag_of(w[j].y) == tag) {
               ready |= 1u << j;
-              *reinterpret_cast<float2*>(dst[j]) = make_float2(value_of(w[j].x), value_of(w[j].y));
+              *reinterpret_cast<float2*>(smem + dst[j]) = make_float2(value_of(w[j].x), value_of(w[j].y));
             }
           }
           if (ready == (1u << kPoll) - 1) break;
+#ifdef WAVERNN_PROFILE
+          ++stale[p];
+#endif
           spin_guard(start);
         }
       }
+      DUAL_MARK(6);
       __syncthreads();
-      for (int b = 0; b < B; ++b) {  // the NCh partials in a fixed order
 #pragma unroll 1
-        for (int c = threadIdx.x; c < FCs; c += kThreads)
-          f_s[b * FCs + c] = fmaxf(sum_partials(stage, NCh, BFs, b * FCs + c) + b1_s[p * FCs + c], 0.f);
+      for (int q = threadIdx.x; q < SW; q += kThreads)  // the NCh clusters' sums in a fixed order
+        f_s[q] = fmaxf(sum_partials(stage, NCh, SW, q) + b1_s[p * SW + q], 0.f);  // 0 past nc
+      __syncthreads();
+      // the next step's partials: every reader has passed (a phase of 0 bytes completes at once)
+      if (half == p && threadIdx.x == 0) mbar_expect(bar_part, part_bytes);
+      DUAL_MARK(7);
+
+      // ---- the rank's partial logits of every class, pushed to the class's owner ----
+      const float* w2h = w2_s + (size_t)p * K * Ws;
+      for (int b0 = 0; b0 < B; b0 += kBatchChunk) {
+        if (B - b0 == 1) push_share_logits<1>(w2h, f_s, lrecv_s, bar_logit, B, K, Kc, Cs, Ws, b0, rank);
+        else push_share_logits<kBatchChunk>(w2h, f_s, lrecv_s, bar_logit, B, K, Kc, Cs, Ws, b0, rank);
       }
-      __syncthreads();
+      DUAL_MARK(8);
 
-      // ---- the rank's logits of the head: eight lanes to a (row, class) ----
-      rank_scores<2>(w2_s + (size_t)p * Kc * FCs, b2_s + p * Kc, f_s, noise_s, score_s, B, Kc, kn,
-                     FCs, lb0, lk0, dlb, dlk, sub, sampled, tdiv);
-      __syncthreads();
-
-      // ---- the rank's best (score, class) of each row, pushed to every rank of the cluster ----
+      // ---- the rank's scores (the cluster's cs partial logits of its classes in rank
+      // order) and its best (score, class) of each row, a warp to a row, pushed to
+      // every rank of the cluster ----
       for (int b = warp; b < B; b += kWarps) {
-        const unsigned long long key = row_best_key(score_s + b * Kc, kn, k0, lane);
+        unsigned long long key = 0;  // below every (score, class)
+        for (int kk = lane; kk < kn; kk += 32) {
+          mbar_wait(bar_logit, (unsigned)p);
+          const int q = b * Kc + kk;
+          float s = lrecv_s[q];
+#pragma unroll
+          for (int r = 1; r < kMaxCluster; ++r)
+            if (r < cs) s += lrecv_s[r * B * Kc + q];
+          s += b2_s[p * Kc + kk];
+          if (sampled) s = s / tdiv + noise_s[q];
+          key = max(key, arg_key(s, k0 + kk));
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) key = max(key, __shfl_xor_sync(0xffffffffu, key, off));
         if (lane < cs)
           push_key(remote(smem_addr(cand_s[p] + b * cs + rank), lane), key, remote(bar_cand[p], lane));
       }
+      DUAL_MARK(9);
 
-      // ---- while the fine candidates cross the cluster: gh = h_t . Whh^T + b_hh ----
-      if (p == 1 && warp < nu && t + 1 < T) {
-        for (int b0 = 0; b0 < B; b0 += kBatchChunk) {
-          if (B - b0 == 1) gate_dots<1>(wreg, h_s, bhh_s, gh_s, B, H, H, b0, warp, lane);
-          else gate_dots<kBatchChunk>(wreg, h_s, bhh_s, gh_s, B, H, H, b0, warp, lane);
-        }
+      // ---- while the candidates cross the cluster: each lane's Whh sums over the
+      // half's columns of h_t, carried (coarse) or finished into gh (fine) ----
+      if (warp < nu && t + 1 < T) {
+        if (p == 0) gh_coarse(wreg, h_s, acc_s, B, H, warp, lane);
+        else gh_fine(wreg, h_s, acc_s, bhh_s, gh_s, B, H, warp, lane);
       }
-      __syncthreads();  // gh_s before the finishers; score_s, f_s and h_s read before they are refilled
+      __syncthreads();  // gh_s before the finishers; the buffers read before they are refilled
+      if (threadIdx.x == 0) mbar_expect(bar_logit, logit_bytes);  // the next phase's: every reader has passed
+      DUAL_MARK(10);
     }
   }
 
@@ -1011,6 +1242,56 @@ __global__ void __launch_bounds__(kThreads) wavernn_kernel_dual(DualArgs a) {
   if (k == 0 && finisher && fu == 0)
     a.out[(size_t)fb * T + (T - 1)] = (cnow << 8) | key_index(best_candidate(cand_s[1] + fb * cs, cs));
   cluster.sync();
+#ifdef WAVERNN_PROFILE
+  if (kl == 0) {
+    if (threadIdx.x < 2 * kDualMarks) g_prof_dual[half * 2 * kDualMarks + threadIdx.x] += prof_s[threadIdx.x];
+    atomicAdd(&g_prof_dual[4 * kDualMarks + 2 * half], stale[0]);
+    atomicAdd(&g_prof_dual[4 * kDualMarks + 2 * half + 1], stale[1]);
+  }
+#endif
+}
+
+// a check of the dual's split gh: unit blockIdx.x * kU + warp's gh for the B
+// rows of h, by gate_dots (whole) and by gh_coarse then gh_fine (split),
+// each (B, 3, H) in torch's gate order
+__global__ void __launch_bounds__(kThreads) dual_gh_check_kernel(const float* whh, const float* bhh,
+                                                                 const float* h, int B, int H,
+                                                                 float* whole, float* split) {
+  extern __shared__ __align__(16) float smem[];
+  float* h_s = smem;                       // B*H
+  float* bhh_s = h_s + (size_t)B * H;      // 3U
+  float* gh_s = bhh_s + 3 * kU;            // B*3U
+  float* acc_s = gh_s + (size_t)B * 3 * kU;  // dual_acc_floats(B)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, j0 = blockIdx.x * kU;
+  const int nu = max(0, min(kU, H - j0));
+  for (int q = threadIdx.x; q < B * H; q += kThreads) h_s[q] = h[q];
+  for (int q = threadIdx.x; q < 3 * kU; q += kThreads) {
+    const int g = q / kU, u = q % kU;
+    bhh_s[q] = u < nu ? bhh[g * H + j0 + u] : 0.f;
+  }
+  float4 wreg[3][kRegIters];
+  if (warp < nu) load_whh(wreg, whh, H, j0 + warp, lane);
+  __syncthreads();
+  for (int pass = 0; pass < 2; ++pass) {
+    if (warp < nu) {
+      if (pass == 0) {
+        for (int b0 = 0; b0 < B; b0 += kBatchChunk) {
+          if (B - b0 == 1) gate_dots<1>(wreg, h_s, bhh_s, gh_s, B, H, H, b0, warp, lane);
+          else gate_dots<kBatchChunk>(wreg, h_s, bhh_s, gh_s, B, H, H, b0, warp, lane);
+        }
+      } else {
+        gh_coarse(wreg, h_s, acc_s, B, H, warp, lane);
+        gh_fine(wreg, h_s, acc_s, bhh_s, gh_s, B, H, warp, lane);
+      }
+    }
+    __syncthreads();
+    float* out = pass == 0 ? whole : split;
+    for (int q = threadIdx.x; q < B * 3 * kU; q += kThreads) {
+      const int b = q / (3 * kU), g = q % (3 * kU) / kU, u = q % kU;
+      if (u < nu) out[((size_t)b * 3 + g) * H + j0 + u] = gh_s[q];
+    }
+    __syncthreads();
+  }
 }
 
 int plan_dual(int B, int H, int K, int* grid, int* units, int* cluster, int* stage_rows, int* smem) {
@@ -1020,8 +1301,8 @@ int plan_dual(int B, int H, int K, int* grid, int* units, int* cluster, int* sta
   if (e != cudaSuccess) return e;
   const int U = kU, Hh = H / 2, Gh = (Hh + U - 1) / U;
   if ((long long)B * U > kThreads) return cudaErrorInvalidValue;
-  // the largest cluster whose grid stays resident; every partial of a
-  // phase is summed in one pass through shared memory
+  // the largest cluster whose grid stays resident; a rank's values of a
+  // phase are summed in one pass through shared memory
   for (int cs = kMaxCluster; cs >= 1; cs /= 2) {
     const int Ghp = (Gh + cs - 1) / cs * cs, NCh = Ghp / cs;
     const size_t s = dual_smem_layout(B, H, K, cs, NCh).total_bytes;
@@ -1037,7 +1318,7 @@ int plan_dual(int B, int H, int K, int* grid, int* units, int* cluster, int* sta
     *grid = 2 * Ghp;
     *units = U;
     *cluster = cs;
-    *stage_rows = B * Hh;
+    *stage_rows = B * dual_share(Hh, cs);
     *smem = (int)s;
     return cudaSuccess;
   }
@@ -1093,8 +1374,9 @@ int wavernn_generate_f32(const void* gates, const void* emb, const void* whh, co
   return cudaGetLastError();
 }
 
-// the dual instantiation's plan (fc unused) and launch; xbuf: 4 * (grid / 2 /
-// cluster * B * H/2 + B * H/2) + 1 8-byte words, zeroed
+// the dual instantiation's plan (fc unused) and launch; xbuf: 4 * (grid / 2 *
+// B * Cs + B * H/2) 8-byte words, zeroed, Cs = H/2 / cluster rounded up to a
+// multiple of 4
 int wavernn_dual_plan(int B, int H, int K, int /*fc*/, int* grid, int* units, int* cluster,
                       int* stage_rows, int* smem) {
   return plan_dual(B, H, K, grid, units, cluster, stage_rows, smem);
@@ -1131,12 +1413,33 @@ int wavernn_dual_generate_f32(const void* gates, const void* win, const void* wh
   return cudaGetLastError();
 }
 
+// the dual's gh, whole and split (dual_gh_check_kernel), for a test on the card
+int wavernn_dual_gh_check(const void* whh, const void* bhh, const void* h, int B, int H, void* whole,
+                          void* split, void* stream) {
+  if (B < 1 || H < 8 || H % 8 || H > 128 * kRegIters) return cudaErrorInvalidValue;
+  const int smem = (int)(((size_t)B * H + 3 * kU + (size_t)B * 3 * kU + dual_acc_floats(B)) * sizeof(float));
+  cudaError_t e = cudaFuncSetAttribute(dual_gh_check_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  dual_gh_check_kernel<<<(H + kU - 1) / kU, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(whh), static_cast<const float*>(bhh), static_cast<const float*>(h), B, H,
+      static_cast<float*>(whole), static_cast<float*>(split));
+  return cudaGetLastError();
+}
+
 #ifdef WAVERNN_PROFILE
 int wavernn_profile_read(unsigned long long* out) {
   cudaError_t e = cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
   if (e != cudaSuccess) return e;
   const unsigned long long zero[kPhases] = {};
   return cudaMemcpyToSymbol(g_prof, zero, sizeof(g_prof));
+}
+
+// the dual's: [half][phase][mark] cycles, then [half][phase] stale poll passes; zeroed after
+int wavernn_profile_read_dual(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_prof_dual, sizeof(g_prof_dual));
+  if (e != cudaSuccess) return e;
+  const unsigned long long zero[sizeof(g_prof_dual) / sizeof(g_prof_dual[0])] = {};
+  return cudaMemcpyToSymbol(g_prof_dual, zero, sizeof(g_prof_dual));
 }
 #endif
 

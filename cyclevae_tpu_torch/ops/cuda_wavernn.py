@@ -323,11 +323,12 @@ def launch_dual(lib: ctypes.CDLL, params: Dict, cfg: WaveRNNConfig, cond: torch.
         weights += [f(params[k][n]) for k in ("O1", "O2", "O3", "O4") for n in ("w", "b")]
         grid, units, cluster, _, smem = plan(lib, B, H, K, 0, dual=True)
         out = torch.empty((B, T), dtype=torch.int32, device=dev)
-        # exchange scratch, 0 at launch: per head and step parity the cluster
-        # partials of the head's first layer (H/2 values a row) from the
-        # clusters of its half, then the half's h; then the count of stores
-        words = (grid // 2 // cluster) * B * Hh + B * Hh
-        xbuf = torch.zeros((4 * words + 1,), dtype=torch.int64, device=dev)
+        # exchange scratch, 0 at launch: per head and step parity the head's
+        # first layer summed in each cluster of its half, by the rank that
+        # owns the values (ceil(H/2 / cluster) a row, padded to 4), then the
+        # half's h
+        words = (grid // 2) * B * _up4(-(-Hh // cluster)) + B * Hh
+        xbuf = torch.zeros((4 * words,), dtype=torch.int64, device=dev)
         ptrs = [gates, *weights, out, xbuf]
 
         fn = lib.wavernn_dual_generate_f32
