@@ -14,8 +14,10 @@ dense ``w`` (out, in)) and same functions:
     sample takes one of ``n_classes`` values, so ``embed @ W_ih_embed^T`` is
     a (n_classes, 3H) gate table and generation needs a row gather per step;
   * ``generate_reference`` is the plain sampler (the JAX package's
-    ``generate_xla``); the sampler on the card is the CUDA kernel behind
-    ``ops/cuda_wavernn.py``.
+    ``generate_xla``), drawing its noise from a ``torch.Generator``; its
+    step is ``plain_sampler``'s, for both output layers, which is also the
+    kernel's plain version (``ops/cuda_wavernn.py``, with the kernel's
+    noise); the sampler on the card is the CUDA kernel behind that module.
 
 The dual output (Kalchbrenner et al., "Efficient Neural Audio Synthesis",
 ICML 2018, arXiv:1802.08435, section 2, eq. 2 and Fig. 1; the JAX package
@@ -373,78 +375,84 @@ def generate_reference(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
     ``logits / temperature`` and takes the argmax; the uniforms ``u`` (T,
     n_classes), dual (T, 2, n_classes) a head each, in [1e-9, 1) are drawn
     from ``generator``, or handed in."""
-    if cfg.dual:
-        gumbel = None
-        if temperature > 0:
-            if u is None:
-                u = (torch.rand((cond.shape[0], 2, cfg.n_classes), generator=generator,
-                                device=cond.device) * (1.0 - 1e-9) + 1e-9)
-            g = -torch.log(-torch.log(u.to(device=cond.device, dtype=_F32)))
-            gumbel = lambda t0, n, head: g[t0:t0 + n, head, None]
-        return dual_sampler(params, cfg, cond[None], gumbel, temperature)[0]
-    H, K = cfg.hidden_units, cfg.n_classes
-    T = cond.shape[0]
-    emb_tab = embed_gate_table(params)
-    gates = cond_gates(params, cfg, cond)                       # (T, 3H)
     gumbel = None
     if temperature > 0:
+        T, K = cond.shape[0], cfg.n_classes
         if u is None:
-            u = torch.rand((T, K), generator=generator, device=cond.device) * (1.0 - 1e-9) + 1e-9
-        gumbel = -torch.log(-torch.log(u.to(device=cond.device, dtype=_F32)))
-    h = torch.zeros((1, H), dtype=_F32, device=cond.device)
-    prev = torch.full((), K // 2, dtype=torch.int64, device=cond.device)
-    out = torch.empty((T,), dtype=torch.int32, device=cond.device)
-    for t in range(T):
-        gx = gates[t] + emb_tab[prev]
-        h = _gru_cell(gx[None], h, params["gru"]["w_hh"], params["gru"]["b_hh"], H)
-        logits = _logits(params, h)[0]
-        if gumbel is not None:
-            prev = torch.argmax(logits / temperature + gumbel[t])
-        else:
-            prev = torch.argmax(logits)
-        out[t] = prev
-    return out
+            u = (torch.rand((T, 2, K) if cfg.dual else (T, K), generator=generator,
+                            device=cond.device) * (1.0 - 1e-9) + 1e-9)
+        g = -torch.log(-torch.log(u.to(device=cond.device, dtype=_F32))).reshape(T, -1, K)
+        gumbel = lambda t0, n, head: g[t0:t0 + n, head, None]
+    return plain_sampler(params, cfg, cond[None], gumbel, temperature)[0]
 
 
-def dual_sampler(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
-                 gumbel: Optional[Callable[[int, int, int], torch.Tensor]] = None,
-                 temperature: float = 1.0, margins: bool = False):
-    """The dual output's AR sampler, step by step, float32, with the numerics
-    of K4's dual instantiation: per step R h_{t-1} for both halves; the
-    coarse half's gates, the conditioning gates plus x_t w_in one input at a
-    time (x_t = [c~_{t-1}, f~_{t-1}, c~_{t-1}]: the mask zeroes the last
-    column there), its head and c_t; then the fine half's with c~_t, its
-    head and f_t.  cond (B, T, cond_dim); ``gumbel(t0, n, head)`` gives the
-    noise (n, B, n_classes) of steps [t0, t0 + n), drawn 4,096 steps at a
-    time: the scores are logits / max(temperature, 1e-6) + noise, and
-    without it the logits.  Returns (B, T) int32 16-bit samples u16 = c *
-    256 + f; with ``margins``, also (B, T, 2) float32 tensors of each
-    head's gap between its two largest scores and its largest |score|."""
+def plain_sampler(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
+                  gumbel: Optional[Callable[[int, int, int], torch.Tensor]] = None,
+                  temperature: float = 1.0, margins: bool = False):
+    """The AR sampler, step by step, float32, with the numerics of K4 and of
+    its dual instantiation.  cond (B, T, cond_dim); ``gumbel(t0, n, head)``
+    gives the noise (n, B, n_classes) of steps [t0, t0 + n) of a head (the
+    mu-law output's is head 0; the dual's coarse head 0, fine head 1),
+    drawn 4,096 steps at a time: the scores are logits / max(temperature,
+    1e-6) + noise, and without it the logits; a head's sample is the argmax.
+
+    A mu-law step: the conditioning gates plus the gate-table row of the
+    previous sample (K // 2 at t = 0, with h = 0), ``_gru_cell``,
+    ``_logits``.  A dual step: R h_{t-1} for both halves; the coarse half's
+    gates, the conditioning gates plus x_t w_in one input at a time (x_t =
+    [c~_{t-1}, f~_{t-1}, c~_{t-1}]: the mask zeroes the last column there),
+    its head and c_t; then the fine half's with c~_t, its head and f_t.
+
+    Returns (B, T) int32 samples: mu-law indices, or the dual's 16-bit
+    samples u16 = c * 256 + f; with ``margins``, also float32 tensors of
+    each head's gap between its two largest scores and its largest |score|,
+    (B, T) for the mu-law output and (B, T, 2) for the dual."""
     B, T, _ = cond.shape
     H, K = cfg.hidden_units, cfg.n_classes
     Hh, dev = H // 2, cond.device
-    g = params["gru"]
-    # rows of each half: [r, z, n] of the coarse units, then of the fine ones
-    perm = torch.cat([torch.arange(gi * H + p * Hh, gi * H + p * Hh + Hh, device=dev)
-                      for p in (0, 1) for gi in range(3)])
-    gates = cond_gates(params, cfg, cond.to(_F32)).to(_F32)[..., perm]
-    w_in = dual_input_weights(params, cfg).to(_F32)[perm]
-    whh, bhh = g["w_hh"].to(_F32)[perm], g["b_hh"].to(_F32)[perm]
-    heads = {k: {n: params[k][n].to(_F32) for n in ("w", "b")} for k in ("O1", "O2", "O3", "O4")}
+    n_heads = 2 if cfg.dual else 1
+    f32 = lambda d: {n: t.to(_F32) for n, t in d.items()}
+    gates = cond_gates(params, cfg, cond.to(_F32)).to(_F32)
+    whh, bhh = params["gru"]["w_hh"].to(_F32), params["gru"]["b_hh"].to(_F32)
+    if cfg.dual:
+        # rows of each half: [r, z, n] of the coarse units, then of the fine ones
+        perm = torch.cat([torch.arange(gi * H + p * Hh, gi * H + p * Hh + Hh, device=dev)
+                          for p in (0, 1) for gi in range(3)])
+        gates, whh, bhh = gates[..., perm], whh[perm], bhh[perm]
+        w_in = dual_input_weights(params, cfg).to(_F32)[perm]
+        heads = {k: f32(params[k]) for k in ("O1", "O2", "O3", "O4")}
+    else:
+        emb_tab = embed_gate_table(params).to(_F32)
+        heads = {k: f32(params[k]) for k in ("fc1", "fc2")}
     # a tensor divisor, so that the division is a true division on every device
     tdiv = torch.full((1,), max(temperature, 1e-6), dtype=_F32, device=dev)
 
     h = torch.zeros((B, H), dtype=_F32, device=dev)
-    c = torch.full((B,), K // 2, dtype=torch.int64, device=dev)
+    c = torch.full((B,), K // 2, dtype=torch.int64, device=dev)   # mu-law: the previous sample
     f = torch.zeros((B,), dtype=torch.int64, device=dev)
     out = torch.empty((B, T), dtype=torch.int32, device=dev)
-    gap = torch.empty((B, T, 2), dtype=_F32, device=dev) if margins else None
-    scale = torch.empty((B, T, 2), dtype=_F32, device=dev) if margins else None
+    gap = torch.empty((B, T, n_heads), dtype=_F32, device=dev) if margins else None
+    scale = torch.empty((B, T, n_heads), dtype=_F32, device=dev) if margins else None
+
+    def pick(logits: torch.Tensor, t: int, head: int, noise) -> torch.Tensor:
+        scores = logits / tdiv + noise if noise is not None else logits
+        if margins:
+            top2 = torch.topk(scores, min(2, K), dim=-1).values
+            gap[:, t, head] = top2[:, 0] - top2[:, -1]
+            scale[:, t, head] = scores.abs().amax(dim=-1)
+        return torch.argmax(scores, dim=-1)
+
     for t0 in range(0, T, 4096):     # bounds the noise drawn at once
         n = min(4096, T - t0)
-        noise = [gumbel(t0, n, p) for p in (0, 1)] if gumbel is not None else None
+        noise = [gumbel(t0, n, p) for p in range(n_heads)] if gumbel is not None else None
         for s in range(n):
             t = t0 + s
+            noise_s = [z[s] for z in noise] if noise is not None else [None] * n_heads
+            if not cfg.dual:
+                h = _gru_cell(gates[:, t] + emb_tab[c], h, whh, bhh, H)
+                c = pick(_logits(heads, h), t, 0, noise_s[0])
+                out[:, t] = c
+                continue
             gh = h @ whh.T + bhh                                   # R h_{t-1}, both halves
             halves, cur = [], c
             for p in (0, 1):
@@ -458,17 +466,13 @@ def dual_sampler(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
                 z = torch.sigmoid(gx[:, Hh:2 * Hh] + ghp[:, Hh:2 * Hh])
                 nn = torch.tanh(gx[:, 2 * Hh:] + r * ghp[:, 2 * Hh:])
                 y = (1.0 - z) * nn + z * h[:, p * Hh:(p + 1) * Hh]
-                logits = dual_head(heads, p, y)
-                scores = logits / tdiv + noise[p][s] if noise is not None else logits
-                cur = torch.argmax(scores, dim=-1)
-                if margins:
-                    top2 = torch.topk(scores, min(2, K), dim=-1).values
-                    gap[:, t, p] = top2[:, 0] - top2[:, -1]
-                    scale[:, t, p] = scores.abs().amax(dim=-1)
+                cur = pick(dual_head(heads, p, y), t, p, noise_s[p])
                 halves.append(y)
                 if p == 0:
                     c_t = cur
             h = torch.cat(halves, dim=-1)
             c, f = c_t, cur
             out[:, t] = c * 256 + f
-    return (out, gap, scale) if margins else out
+    if not margins:
+        return out
+    return (out, gap, scale) if cfg.dual else (out, gap[..., 0], scale[..., 0])

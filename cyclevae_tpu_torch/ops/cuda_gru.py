@@ -38,7 +38,7 @@ cotangents) ride at the weight dtype, and the carried states stay float32.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -204,19 +204,23 @@ def _plan(lib: ctypes.CDLL, entry: str, n_out: int, batch: int, hidden: int,
     return tuple(v.value for v in vals)
 
 
-# plans already made, per (library, entry, device index, B, H, out, weight
-# dtype): a plan queries the device and the occupancy of each candidate grid
+# plans already made, per (library, entry, device index, shapes): a plan
+# queries the device and the occupancy of each candidate grid.  The AR-GRU
+# kernels' shapes are (B, H, out, weight dtype), K4's (ops/cuda_wavernn.py)
+# (B, H, classes, fc)
 _PLANS: Dict[Tuple, Tuple[int, ...]] = {}
 
 
-def _cached_plan(lib: ctypes.CDLL, entry: str, n_out: int, batch: int, hidden: int,
-                 out_dim: int, weight_dtype: torch.dtype, device: Optional[int]) -> Tuple[int, ...]:
+def _cached_plan(lib: ctypes.CDLL, entry: str, device: Optional[int], shapes: Tuple,
+                 make: Callable[[], Tuple[int, ...]]) -> Tuple[int, ...]:
+    """The plan of ``entry`` of ``lib`` for ``shapes`` on CUDA device
+    ``device`` (the current one by default): ``make()`` once per key, kept."""
     if device is None:
         device = torch.cuda.current_device()
-    key = (id(lib), entry, device, batch, hidden, out_dim, weight_dtype)
+    key = (id(lib), entry, device, *shapes)
     got = _PLANS.get(key)
     if got is None:
-        got = _PLANS[key] = _plan(lib, entry, n_out, batch, hidden, out_dim, weight_dtype)
+        got = _PLANS[key] = make()
     return got
 
 
@@ -238,7 +242,8 @@ def plan(lib: ctypes.CDLL, batch: int, hidden: int, out_dim: int,
     where B rows do not fit; the wrappers then split B, ``max_batch``).
     Made once per shape and device."""
     entry = "gru_ar_train_plan" if train else "gru_ar_plan"
-    return _cached_plan(lib, entry, 5, batch, hidden, out_dim, weight_dtype, device)
+    return _cached_plan(lib, entry, device, (batch, hidden, out_dim, weight_dtype),
+                        lambda: _plan(lib, entry, 5, batch, hidden, out_dim, weight_dtype))
 
 
 # what plan_bwd returns, and the phases of one reversed step that a
@@ -257,7 +262,9 @@ def plan_bwd(lib: ctypes.CDLL, batch: int, hidden: int, out_dim: int,
     shared bytes) of one K3 launch; raises when the shapes cannot run on CUDA
     device ``device`` (the current one by default; ``RowsDoNotFit`` where B
     rows do not fit).  Made once per shape and device."""
-    return _cached_plan(lib, "gru_ar_bwd_plan", 4, batch, hidden, out_dim, weight_dtype, device)
+    return _cached_plan(lib, "gru_ar_bwd_plan", device, (batch, hidden, out_dim, weight_dtype),
+                        lambda: _plan(lib, "gru_ar_bwd_plan", 4, batch, hidden, out_dim,
+                                      weight_dtype))
 
 
 # the largest B each kernel plans, per (kind, H, out, weight dtype, device

@@ -31,11 +31,11 @@ The dual output (``WaveRNNConfig.dual``, the published WaveRNN's coarse and
 fine softmax over 16-bit audio) has its own instantiation of the kernel in
 the same source, one launch a call too, with the same contract: (B, T)
 int32 16-bit samples u16 = c * 256 + f.  The wrapper passes the masked
-input weights of [c~_{t-1}, f~_{t-1}, c~_t] beside the conditioning gates;
-its plain version, ``dual_generate_reference``, is ``models/wavernn.py``'s
-``dual_sampler`` (the step's numerics are written there) with the kernel's
-uniforms: the coarse head K4's counter (t, b, k // 4, 0), the fine head
-(t, b, k // 4, 1).
+input weights of [c~_{t-1}, f~_{t-1}, c~_t] where K4 takes the gate table.
+One ``launch`` serves both instantiations, and one plain version both:
+``models/wavernn.py``'s ``plain_sampler`` (the step's numerics are written
+there) with the kernel's uniforms, the coarse head K4's counter (t, b,
+k // 4, 0), the fine head (t, b, k // 4, 1).
 """
 
 from __future__ import annotations
@@ -46,16 +46,15 @@ from typing import Dict, List, Tuple
 import torch
 
 from . import _build
-from .cuda_gru import _ptr, _stream, _up4
+from .cuda_gru import _cached_plan, _entry, _ptr, _stream, _up4
 from ..utils.profiling import count
-from ..models.wavernn import (WaveRNNConfig, cond_gates, dual_input_weights, dual_sampler,
-                              embed_gate_table)
+from ..models.wavernn import (WaveRNNConfig, cond_gates, dual_input_weights, embed_gate_table,
+                              plain_sampler)
 
 _F32 = torch.float32
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-_STEPS_PER_CHUNK = 4096   # uniforms drawn per pass, to bound the int64 temporaries
 # Over thousands of dependent argmaxes, a float32 near-tie can flip one index
 # between the kernel and its plain version (they sum in different orders),
 # after which the two trajectories part.  A flip is accepted only where the
@@ -104,78 +103,22 @@ def philox_uniforms(seed: int, t0: int, T: int, B: int, K: int,
     return (bits & 0x7FFFFF).to(_F32) * (1.0 / (1 << 23))
 
 
-def _gates(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor):
-    """(emb_tab (K, 3H), cond_gates (B, T, 3H)), float32, computed outside
-    the kernel as the TPU wrapper computes them."""
-    return embed_gate_table(params).to(_F32), cond_gates(params, cfg, cond.to(_F32)).to(_F32)
-
-
 def wavernn_generate_reference(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
                                seed: int, temperature: float = 1.0,
                                margins: bool = False):
-    """Plain PyTorch version of K4, step by step, with the kernel's numerics
-    and its Philox uniforms.  Returns (B, T) int32 indices; with
-    ``margins``, also (B, T) float32 tensors of each step's gap between the
-    two largest scores and its largest |score| (what a near-tie test reads).
-    The dual output: ``dual_generate_reference``."""
-    if cfg.dual:
-        return dual_generate_reference(params, cfg, cond, seed, temperature, margins)
-    B, T, _ = cond.shape
-    H, K = cfg.hidden_units, cfg.n_classes
-    dev = cond.device
-    emb_tab, gates = _gates(params, cfg, cond)
-    g = params["gru"]
-    whh, bhh = g["w_hh"].to(_F32), g["b_hh"].to(_F32)
-    w1, b1 = params["fc1"]["w"].to(_F32), params["fc1"]["b"].to(_F32)
-    w2, b2 = params["fc2"]["w"].to(_F32), params["fc2"]["b"].to(_F32)
-    sampled = temperature > 0
-    # a tensor divisor, so that the division is a true division on every device
-    tdiv = torch.full((1,), max(temperature, 1e-6), dtype=_F32, device=dev)
-
-    h = torch.zeros((B, H), dtype=_F32, device=dev)
-    idx = torch.full((B,), K // 2, dtype=torch.int64, device=dev)
-    out = torch.empty((B, T), dtype=torch.int32, device=dev)
-    gap = torch.empty((B, T), dtype=_F32, device=dev) if margins else None
-    scale = torch.empty((B, T), dtype=_F32, device=dev) if margins else None
-    for t0 in range(0, T, _STEPS_PER_CHUNK):
-        n = min(_STEPS_PER_CHUNK, T - t0)
-        if sampled:
-            u = philox_uniforms(seed, t0, n, B, K, dev)
-            gumbel = -torch.log(-torch.log(u + 1e-9) + 1e-9)
-        for s in range(n):
-            t = t0 + s
-            gx = gates[:, t] + emb_tab[idx]
-            gh = h @ whh.T + bhh
-            r = torch.sigmoid(gx[:, :H] + gh[:, :H])
-            z = torch.sigmoid(gx[:, H:2 * H] + gh[:, H:2 * H])
-            nn = torch.tanh(gx[:, 2 * H:] + r * gh[:, 2 * H:])
-            h = (1.0 - z) * nn + z * h
-            logits = torch.relu(h @ w1.T + b1) @ w2.T + b2
-            scores = logits / tdiv + gumbel[s] if sampled else logits
-            idx = torch.argmax(scores, dim=-1)
-            out[:, t] = idx
-            if margins:
-                top2 = torch.topk(scores, min(2, K), dim=-1).values
-                gap[:, t] = top2[:, 0] - top2[:, -1]
-                scale[:, t] = scores.abs().amax(dim=-1)
-    return (out, gap, scale) if margins else out
-
-
-def dual_generate_reference(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
-                            seed: int, temperature: float = 1.0, margins: bool = False):
-    """Plain PyTorch version of the dual instantiation (``dual_sampler``,
-    the kernel's numerics) with its Philox uniforms: head 0 the coarse, head
-    1 the fine.  Returns (B, T) int32 16-bit samples u16 = c * 256 + f; with
-    ``margins``, also (B, T, 2) float32 tensors of each head's gap between
-    its two largest scores and its largest |score|."""
-    B, _, _ = cond.shape
+    """Plain PyTorch version of K4 and of its dual instantiation: the
+    model's ``plain_sampler`` with the kernel's Philox uniforms.  Returns
+    (B, T) int32 samples; with ``margins``, also each head's gap between its
+    two largest scores and its largest |score| at each step ((B, T) float32
+    tensors, the dual's (B, T, 2)), what a near-tie test reads."""
+    B = cond.shape[0]
 
     def gumbel(t0: int, n: int, head: int) -> torch.Tensor:
         u = philox_uniforms(seed, t0, n, B, cfg.n_classes, cond.device, head=head)
         return -torch.log(-torch.log(u + 1e-9) + 1e-9)
 
-    return dual_sampler(params, cfg, cond, gumbel if temperature > 0 else None, temperature,
-                        margins)
+    return plain_sampler(params, cfg, cond, gumbel if temperature > 0 else None, temperature,
+                         margins)
 
 
 def first_divergence(got: torch.Tensor, want: torch.Tensor, gap: torch.Tensor,
@@ -206,21 +149,26 @@ def first_divergence(got: torch.Tensor, want: torch.Tensor, gap: torch.Tensor,
     return steps, ok
 
 
+def _plan(lib: ctypes.CDLL, entry: str, batch: int, hidden: int, n_classes: int,
+          fc_dim: int) -> Tuple[int, ...]:
+    vals = [ctypes.c_int() for _ in range(5)]
+    fn = _entry(lib, entry, [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 5)
+    err = fn(batch, hidden, n_classes, fc_dim, *(ctypes.byref(v) for v in vals))
+    _build.check(lib, err, f"{entry} for B={batch} H={hidden} K={n_classes} fc={fc_dim}")
+    return tuple(v.value for v in vals)
+
+
 def plan(lib: ctypes.CDLL, batch: int, hidden: int, n_classes: int,
          fc_dim: int, dual: bool = False) -> Tuple[int, int, int, int, int]:
     """(blocks, hidden units per block, blocks per cluster, fc1 values summed
     per pass, dynamic shared bytes) of one K4 launch on the current CUDA
     device; raises when the shapes cannot run there.  ``dual``: of the dual
     instantiation (``fc_dim`` unused: its heads' first layers are H/2 wide,
-    summed in one pass)."""
-    vals = [ctypes.c_int() for _ in range(5)]
-    fn = lib.wavernn_dual_plan if dual else lib.wavernn_plan
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 5
-    fn.restype = ctypes.c_int
-    err = fn(batch, hidden, n_classes, fc_dim, *(ctypes.byref(v) for v in vals))
-    _build.check(lib, err, f"{'wavernn_dual_plan' if dual else 'wavernn_plan'} for B={batch} "
-                 f"H={hidden} K={n_classes} fc={fc_dim}")
-    return tuple(v.value for v in vals)
+    summed in one pass).  Made once per shape and device, in the AR-GRU
+    kernels' cache (``cuda_gru._cached_plan``)."""
+    entry = "wavernn_dual_plan" if dual else "wavernn_plan"
+    return _cached_plan(lib, entry, None, (batch, hidden, n_classes, fc_dim),
+                        lambda: _plan(lib, entry, batch, hidden, n_classes, fc_dim))
 
 
 def cuda_wavernn_generate(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
@@ -232,10 +180,7 @@ def cuda_wavernn_generate(params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
     ``wavernn.steps``."""
     if cond.device.type == "cpu":
         return wavernn_generate_reference(params, cfg, cond, seed, temperature)
-    lib = _build.load("wavernn")
-    if cfg.dual:
-        return launch_dual(lib, params, cfg, cond, seed, temperature)
-    return launch(lib, params, cfg, cond, seed, temperature)
+    return launch(_build.load("wavernn"), params, cfg, cond, seed, temperature)
 
 
 cuda_wavernn_generate.launches = 0
@@ -244,8 +189,10 @@ cuda_wavernn_generate.launches = 0
 def launch(lib: ctypes.CDLL, params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
            seed: int, temperature: float) -> torch.Tensor:
     """Check the inputs, allocate the output and scratch, and launch the
-    kernel of ``lib`` (a build of ``csrc/wavernn.cu``) on the current
-    stream."""
+    kernel of ``lib`` (a build of ``csrc/wavernn.cu``) once on the current
+    stream: K4, or for the dual output its instantiation, which takes the
+    masked input weights of [c~_{t-1}, f~_{t-1}, c~_t] where K4 takes the
+    gate table, and the four weights of its two heads."""
     dev = cond.device
     if dev.type != "cuda":
         raise ValueError(f"the wavernn kernel runs on CUDA tensors, got {dev}")
@@ -253,10 +200,18 @@ def launch(lib: ctypes.CDLL, params: Dict, cfg: WaveRNNConfig, cond: torch.Tenso
         raise ValueError(f"cond {tuple(cond.shape)} is not (B, T >= 1, {cfg.cond_dim})")
     B, T, _ = cond.shape
     H, K, FC = cfg.hidden_units, cfg.n_classes, cfg.fc_dim
-    want = {("embed", None): (K, cfg.embed_dim),
-            ("gru", "w_ih"): (3 * H, cfg.embed_dim + cfg.cond_dim), ("gru", "b_ih"): (3 * H,),
-            ("gru", "w_hh"): (3 * H, H), ("gru", "b_hh"): (3 * H,),
-            ("fc1", "w"): (FC, H), ("fc1", "b"): (FC,), ("fc2", "w"): (K, FC), ("fc2", "b"): (K,)}
+    Hh = H // 2
+    gru = {("gru", "w_ih"): (3 * H, cfg.input_dim + cfg.cond_dim), ("gru", "b_ih"): (3 * H,),
+           ("gru", "w_hh"): (3 * H, H), ("gru", "b_hh"): (3 * H,)}
+    if cfg.dual:
+        heads = ("O1", "O2", "O3", "O4")
+        want = {**gru, ("O1", "w"): (Hh, Hh), ("O1", "b"): (Hh,), ("O2", "w"): (K, Hh),
+                ("O2", "b"): (K,), ("O3", "w"): (Hh, Hh), ("O3", "b"): (Hh,),
+                ("O4", "w"): (K, Hh), ("O4", "b"): (K,)}
+    else:
+        heads = ("fc1", "fc2")
+        want = {("embed", None): (K, cfg.embed_dim), **gru, ("fc1", "w"): (FC, H),
+                ("fc1", "b"): (FC,), ("fc2", "w"): (K, FC), ("fc2", "b"): (K,)}
     for (net, name), shape in want.items():
         t = params[net] if name is None else params[net][name]
         if tuple(t.shape) != shape:
@@ -265,79 +220,36 @@ def launch(lib: ctypes.CDLL, params: Dict, cfg: WaveRNNConfig, cond: torch.Tenso
             raise ValueError(f"{net}.{name} is on {t.device}, cond on {dev}")
 
     with torch.cuda.device(dev):
-        emb_tab, gates = (t.contiguous() for t in _gates(params, cfg, cond))
         f = lambda t: t.to(_F32).contiguous()
-        weights = [f(params["gru"]["w_hh"]), f(params["gru"]["b_hh"]),
-                   f(params["fc1"]["w"]), f(params["fc1"]["b"]),
-                   f(params["fc2"]["w"]), f(params["fc2"]["b"])]
-        grid, units, cluster, stage_rows, smem = plan(lib, B, H, K, FC)
+        inputs = dual_input_weights(params, cfg) if cfg.dual else embed_gate_table(params)
+        ptrs = [f(cond_gates(params, cfg, cond.to(_F32))), f(inputs),
+                f(params["gru"]["w_hh"]), f(params["gru"]["b_hh"]),
+                *(f(params[k][n]) for k in heads for n in ("w", "b"))]
+        grid, units, cluster, stage_rows, smem = plan(lib, B, H, K, 0 if cfg.dual else FC,
+                                                      dual=cfg.dual)
+        if cfg.dual:
+            # exchange scratch, 0 at launch: per head and step parity the
+            # head's first layer summed in each cluster of its half, by the
+            # rank that owns the values (ceil(H/2 / cluster) a row, padded to
+            # 4), then the half's h
+            words = 4 * ((grid // 2) * B * _up4(-(-Hh // cluster)) + B * Hh)
+            entry, what = "wavernn_dual_generate_f32", "wavernn dual launch"
+            ints = (B, T, H, K, grid, units, cluster, smem)
+        else:
+            # exchange scratch, 0 at launch: per step parity the cluster
+            # partials of f and h, each 8-byte word a float and the step that
+            # wrote it (rows padded to 16 bytes); then the count of blocks'
+            # stores
+            words = 2 * ((grid // cluster) * B * _up4(FC) + B * _up4(H)) + 1
+            entry, what = "wavernn_generate_f32", "wavernn launch"
+            ints = (B, T, H, K, FC, grid, units, cluster, stage_rows, smem)
         out = torch.empty((B, T), dtype=torch.int32, device=dev)
-        # exchange scratch, 0 at launch: per step parity the cluster partials
-        # of f and h, each 8-byte word a float and the step that wrote it
-        # (rows padded to 16 bytes); then the count of blocks' stores
-        words = (grid // cluster) * B * _up4(FC) + B * _up4(H)
-        xbuf = torch.zeros((2 * words + 1,), dtype=torch.int64, device=dev)
-        ptrs = [gates, emb_tab, *weights, out, xbuf]
-
-        fn = lib.wavernn_generate_f32
-        fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_uint32, ctypes.c_float]
-                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        err = fn(*(_ptr(t) for t in ptrs), seed & _MASK32, float(temperature),
-                 B, T, H, K, FC, grid, units, cluster, stage_rows, smem, _stream(dev))
-        _build.check(lib, err, "wavernn launch")
-    _build.count_launch(cuda_wavernn_generate)
-    count("wavernn.steps", B * T)
-    return out
-
-
-def launch_dual(lib: ctypes.CDLL, params: Dict, cfg: WaveRNNConfig, cond: torch.Tensor,
-                seed: int, temperature: float) -> torch.Tensor:
-    """``launch`` for the dual instantiation: the conditioning gates and the
-    masked input weights of [c~_{t-1}, f~_{t-1}, c~_t] made here, the
-    weights checked, the kernel launched once on the current stream."""
-    dev = cond.device
-    if dev.type != "cuda":
-        raise ValueError(f"the wavernn kernel runs on CUDA tensors, got {dev}")
-    if cond.dim() != 3 or cond.shape[2] != cfg.cond_dim or cond.shape[1] < 1:
-        raise ValueError(f"cond {tuple(cond.shape)} is not (B, T >= 1, {cfg.cond_dim})")
-    B, T, _ = cond.shape
-    H, K = cfg.hidden_units, cfg.n_classes
-    Hh = H // 2
-    want = {("gru", "w_ih"): (3 * H, 3 + cfg.cond_dim), ("gru", "b_ih"): (3 * H,),
-            ("gru", "w_hh"): (3 * H, H), ("gru", "b_hh"): (3 * H,),
-            ("O1", "w"): (Hh, Hh), ("O1", "b"): (Hh,), ("O2", "w"): (K, Hh), ("O2", "b"): (K,),
-            ("O3", "w"): (Hh, Hh), ("O3", "b"): (Hh,), ("O4", "w"): (K, Hh), ("O4", "b"): (K,)}
-    for (net, name), shape in want.items():
-        t = params[net][name]
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{net}.{name} {tuple(t.shape)} is not {shape}")
-        if t.device != dev:
-            raise ValueError(f"{net}.{name} is on {t.device}, cond on {dev}")
-
-    with torch.cuda.device(dev):
-        f = lambda t: t.to(_F32).contiguous()
-        gates = f(cond_gates(params, cfg, cond.to(_F32)))
-        weights = [f(dual_input_weights(params, cfg)), f(params["gru"]["w_hh"]),
-                   f(params["gru"]["b_hh"])]
-        weights += [f(params[k][n]) for k in ("O1", "O2", "O3", "O4") for n in ("w", "b")]
-        grid, units, cluster, _, smem = plan(lib, B, H, K, 0, dual=True)
-        out = torch.empty((B, T), dtype=torch.int32, device=dev)
-        # exchange scratch, 0 at launch: per head and step parity the head's
-        # first layer summed in each cluster of its half, by the rank that
-        # owns the values (ceil(H/2 / cluster) a row, padded to 4), then the
-        # half's h
-        words = (grid // 2) * B * _up4(-(-Hh // cluster)) + B * Hh
-        xbuf = torch.zeros((4 * words,), dtype=torch.int64, device=dev)
-        ptrs = [gates, *weights, out, xbuf]
-
-        fn = lib.wavernn_dual_generate_f32
-        fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_uint32, ctypes.c_float]
-                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        err = fn(*(_ptr(t) for t in ptrs), seed & _MASK32, float(temperature),
-                 B, T, H, K, grid, units, cluster, smem, _stream(dev))
-        _build.check(lib, err, "wavernn dual launch")
+        ptrs += [out, torch.zeros((words,), dtype=torch.int64, device=dev)]
+        fn = _entry(lib, entry, [ctypes.c_void_p] * len(ptrs) + [ctypes.c_uint32, ctypes.c_float]
+                    + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+        err = fn(*(_ptr(t) for t in ptrs), seed & _MASK32, float(temperature), *ints,
+                 _stream(dev))
+        _build.check(lib, err, what)
     _build.count_launch(cuda_wavernn_generate)
     count("wavernn.steps", B * T)
     return out

@@ -27,7 +27,7 @@ import subprocess
 import torch
 
 from . import _build
-from .cuda_wavernn import cuda_wavernn_generate, launch, launch_dual, plan
+from .cuda_wavernn import cuda_wavernn_generate, launch, plan
 from ..models.wavernn import WaveRNNConfig, init_wavernn
 
 PHASES = ("wait for the cluster's candidates", "merge, gates and h_t", "fc1 partial, pushed",
@@ -87,7 +87,7 @@ def dual(args, dev, gen) -> dict:
     us_sample = _us_per_sample(call, args.T)
     prof = _build.load("wavernn", ("WAVERNN_PROFILE",))
     m = len(DUAL_STAGES)
-    counts = _profiled(prof, "wavernn_profile_read_dual", 4 * m + 4, lambda: launch_dual(prof, *call))
+    counts = _profiled(prof, "wavernn_profile_read_dual", 4 * m + 4, lambda: launch(prof, *call))
     phases = {}
     for p, phase in enumerate(("coarse", "fine")):
         per_half = [[counts[(h * 2 + p) * m + i] / args.T for i in range(m)] for h in (0, 1)]

@@ -1,5 +1,7 @@
 """The AR-GRU wrappers make each kernel plan once per shape and device, and
-set each C entry point's argument types once (``ops/cuda_gru.py``).
+set each C entry point's argument types once (``ops/cuda_gru.py``); the
+WaveRNN sampler's plans (``ops/cuda_wavernn.py``, K4 and its dual
+instantiation) go through the same cache.
 
 Runs on the CPU: the C plan is replaced by a counter, the library by a
 stand-in object.
@@ -11,7 +13,7 @@ import types
 import pytest
 import torch
 
-from cyclevae_tpu_torch.ops import cuda_gru
+from cyclevae_tpu_torch.ops import cuda_gru, cuda_wavernn
 
 
 @pytest.fixture
@@ -54,6 +56,27 @@ def test_a_new_key_queries_again(queries, change):
     call(other)
     call(key)
     assert len(queries) == 2
+
+
+@pytest.mark.parametrize("dual", [False, True], ids=["mulaw", "dual"])
+def test_wavernn_plans_are_made_once_per_shape_in_the_same_cache(queries, monkeypatch, dual):
+    """What each K4 launch asks (``launch`` calls ``plan``): one query for
+    repeated launches of one shape, one more for a new B or a new library."""
+    seen = []
+
+    def fake_plan(lib, entry, batch, hidden, n_classes, fc_dim):
+        seen.append((lib, entry, batch))
+        return (8, 8, 4, 16, 1024)
+
+    monkeypatch.setattr(cuda_wavernn, "_plan", fake_plan)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    fc, entry = (0, "wavernn_dual_plan") if dual else (128, "wavernn_plan")
+    other = object()
+    for _ in range(3):
+        for lib, B in ((LIB, 1), (LIB, 4), (other, 1)):
+            assert cuda_wavernn.plan(lib, B, 896, 256, fc, dual=dual) == (8, 8, 4, 16, 1024)
+    assert seen == [(LIB, entry, 1), (LIB, entry, 4), (other, entry, 1)]
+    assert len(cuda_gru._PLANS) == 3 and queries == []
 
 
 def test_entry_points_get_their_argument_types_once():

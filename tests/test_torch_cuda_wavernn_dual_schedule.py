@@ -9,12 +9,12 @@ no JAX:
 Each cluster rank owns a share of every row's first-layer values, sums them
 over the clusters of the half and forms their partial logits of every
 class, which the class's owner sums in rank order; so the kernel sums in
-another order than ``dual_generate_reference`` and is held sample by sample
-by ``first_divergence``: equal, or a first difference where the plain
-version's two best scores of the head that differs lie within 1e-4 of its
-largest |score|.  The Whh products are split around a phase's wait, each
-lane's sums carried over: ``wavernn_dual_gh_check`` holds that gh bitwise
-to the whole product's.
+another order than its plain version (``wavernn_generate_reference``) and
+is held sample by sample by ``first_divergence``: equal, or a first
+difference where the plain version's two best scores of the head that
+differs lie within 1e-4 of its largest |score|.  The Whh products are
+split around a phase's wait, each lane's sums carried over:
+``wavernn_dual_gh_check`` holds that gh bitwise to the whole product's.
 """
 
 import ctypes
@@ -27,9 +27,9 @@ from cyclevae_tpu_torch.ops import _build
 from cyclevae_tpu_torch.ops.cuda_gru import _ptr, _stream
 from cyclevae_tpu_torch.ops.cuda_wavernn import (
     cuda_wavernn_generate,
-    dual_generate_reference,
     first_divergence,
     plan,
+    wavernn_generate_reference,
 )
 
 
@@ -61,8 +61,8 @@ def _hold(params, cfg, cond, seed, temperature):
     before = cuda_wavernn_generate.launches
     got = cuda_wavernn_generate(params, cfg, cond, seed=seed, temperature=temperature)
     launches = cuda_wavernn_generate.launches - before
-    want, gap, scale = dual_generate_reference(params, cfg, cond, seed=seed,
-                                               temperature=temperature, margins=True)
+    want, gap, scale = wavernn_generate_reference(params, cfg, cond, seed=seed,
+                                                  temperature=temperature, margins=True)
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and got.shape == cond.shape[:2]
     assert launches == 1

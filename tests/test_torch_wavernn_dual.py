@@ -127,13 +127,27 @@ def test_coarse_stream_is_k4s_and_fine_stream_its_own():
                        ref.gumbel(9, 3, 5, 256, "cpu", row=1, head=0))
 
 
-def test_plain_sampler_is_the_model_sampler():
+# a small single mu-law softmax, for the tests that hold both output layers
+MULAW = tw.WaveRNNConfig(n_classes=64, embed_dim=16, cond_dim=8, hidden_units=16, fc_dim=16)
+
+
+@pytest.mark.parametrize("dual", [False, True], ids=["mulaw", "dual"])
+def test_plain_sampler_is_the_model_sampler(dual):
     """Greedy, the kernel's plain version and the model's own sampler
-    (``generate_reference``) take the same samples."""
-    p, cond = _params(5), _cond(6, 2)
-    got = cw.wavernn_generate_reference(p, CFG, cond, seed=0, temperature=0.0)
+    (``generate_reference``) take the same samples, row by row, for both
+    output layers."""
+    if dual:
+        cfg, p = CFG, _params(5)
+    else:
+        cfg, g = MULAW, torch.Generator().manual_seed(5)
+        p = tw.init_wavernn(g, cfg)
+        for k in ("b_ih", "b_hh"):
+            p["gru"][k].uniform_(-0.5, 0.5, generator=g)
+    cond = _cond(6, 2)
+    got = cw.wavernn_generate_reference(p, cfg, cond, seed=0, temperature=0.0)
+    assert got.shape == (2, T)
     for b in range(2):
-        assert torch.equal(got[b], tw.generate_reference(p, CFG, cond[b], 0.0))
+        assert torch.equal(got[b], tw.generate_reference(p, cfg, cond[b], 0.0))
 
 
 def test_codec_round_trips_every_int16():
