@@ -17,7 +17,11 @@ Phases, one line or more each; any failure exits non-zero:
               out=50), and K3 also at T=560; past one launch's rows (row
               blocks, ``ops.cuda_gru.max_batch``): K2 and K3 at a bsu-64
               step's fused 2B decoder (B=128, T=80) and K1 at B=64, T=256,
-              each with its launches per call; each K1, K2 and K3 row with its
+              each with its launches per call; each K2 row also checks the
+              (B, T, 4, H) gates K2 keeps against the plain forward's; at
+              stage i's log-joint (B=8, T=800, float32) K2, K3, and K3 on
+              the gates K2 kept (the training path's K3, its bound without
+              the gate recompute); each K1, K2 and K3 row with its
               plan (K1, K2: grid, units per block, y values each block sums,
               lanes per (row, unit) in the gate phase, shared bytes; K3: grid,
               units, dh partials per pass, shared bytes, cluster size 1);
@@ -483,6 +487,19 @@ def gru_ar_bwd_bound_ms(B: int, T: int, out: int, wdt: torch.dtype):
     return elementwise_bound_ms(ops, nbytes, wdt)
 
 
+def gru_ar_bwd_saved_bound_ms(B: int, T: int, out: int, wdt: torch.dtype):
+    """K3 on the gates K2 kept: the cotangents' products only (``dy_tot .
+    Wout``, ``dgh . Whh``, ``dgx . Wy``; no gate recompute); bytes of each
+    input it reads once (d_trj, h_prev, mask, the (B, T, 4, H) float32
+    gates, Wout, Whh, Wy, dh_T, dy_T) and each output written once."""
+    wb = torch.empty((), dtype=wdt).element_size()
+    ops = 2 * T * B * (out * H + 3 * H * H + 3 * H * out)
+    nbytes = (B * T * out * 4 + B * T * 2 * H * wb + B * T * 4 * H * 4
+              + (out * H + 3 * H * H + 3 * H * out) * wb + (B * H + B * out) * 4
+              + 2 * B * T * 3 * H * wb + B * T * out * 4 + (B * H + B * out) * 4)
+    return elementwise_bound_ms(ops, nbytes, wdt)
+
+
 def wavernn_bound_ms(B: int, T: int, cfg):
     """K4: operations as ``pallas_wavernn.py:138-142`` counts them; bytes of
     the conditioning gates read once, the weights (gate table, Whh, b_hh,
@@ -612,12 +629,17 @@ def _match(got, want, wdt, scale_tol):
 def _train_rows(dev, gen, runs, dtypes, tag="kernels"):
     """K2 and K3 against their plain versions on random weights, gates,
     feedback and dropout masks: per (call, B, out, conv_dim, T, kernels) of
-    ``runs`` and dtype, as ``_k1_rows``."""
+    ``runs`` and dtype, as ``_k1_rows``.  K2's row checks the gates it keeps
+    too (``cuda_gru_ar_train_gates``), against the plain forward's.  Kernel
+    "gru_ar_bwd_saved" is K3 on those gates, as the training path runs it,
+    against the plain K3 recomputing its gates from the plain forward's
+    residuals, with a bound of the work it does (no recompute)."""
     from cyclevae_tpu_torch.models.layers import init_dense, init_gru_stack
     from cyclevae_tpu_torch.ops import _build
     from cyclevae_tpu_torch.ops.cuda_gru import (BWD_PLAN_KEYS, PLAN_KEYS, cuda_gru_ar_bwd,
-                                                 cuda_gru_ar_train, gru_ar_bwd_reference,
-                                                 gru_ar_train_reference, max_batch, plan,
+                                                 cuda_gru_ar_train, cuda_gru_ar_train_gates,
+                                                 gru_ar_bwd_reference, gru_ar_train_reference,
+                                                 _forward_reference, max_batch, plan,
                                                  plan_bwd)
     from cyclevae_tpu_torch.ops.gru_scan import precompute_input_gates
 
@@ -647,24 +669,32 @@ def _train_rows(dev, gen, runs, dtypes, tag="kernels"):
                 # rows, ceil(B / max_batch) launches a call; the first
                 # block's plan
                 if kname == "gru_ar_train":
+                    # all five outputs: trj, y_T, h_T, h_seq and the gates
                     args = (layer, proj, gx, y0, h0, mask, wdt)
-                    fn, ref, tol = cuda_gru_ar_train, gru_ar_train_reference, F32_ATOL
+                    fn, ref, tol = cuda_gru_ar_train_gates, _forward_reference, F32_ATOL
+                    counter = cuda_gru_ar_train
                     bound_ms, bound_by = gru_ar_train_bound_ms(B, T, out, wdt)
                     limit = max_batch("k2", H, out, wdt)
                     pl = dict(zip(PLAN_KEYS, plan(_build.load("gru_ar"), min(B, limit), H, out,
                                                   wdt, train=True)))
                 else:
-                    args = bwd_args
-                    fn, ref, tol = cuda_gru_ar_bwd, gru_ar_bwd_reference, GRAD_SCALE_TOL
+                    args, fn, ref = bwd_args, cuda_gru_ar_bwd, gru_ar_bwd_reference
+                    tol, counter = GRAD_SCALE_TOL, cuda_gru_ar_bwd
                     bound_ms, bound_by = gru_ar_bwd_bound_ms(B, T, out, wdt)
+                    if kname == "gru_ar_bwd_saved":
+                        args += (cuda_gru_ar_train_gates(layer, proj, gx, y0, h0, mask, wdt)[4],)
+                        # the plain K3 recomputes its gates: no kernel output
+                        # reaches the reference
+                        ref = lambda *a: gru_ar_bwd_reference(*a[:-1])
+                        bound_ms, bound_by = gru_ar_bwd_saved_bound_ms(B, T, out, wdt)
                     limit = max_batch("k3", H, out, wdt)
                     # K3 runs without thread-block clusters: its exchange
                     # crosses L2 (see csrc/gru_ar_bwd.cu)
                     pl = dict(zip(BWD_PLAN_KEYS, plan_bwd(_build.load("gru_ar_bwd"),
                                                           min(B, limit), H, out, wdt)), cluster=1)
-                before = fn.launches
+                before = counter.launches
                 got = fn(*args)
-                launches = fn.launches - before
+                launches = counter.launches - before
                 want = ref(*args)
                 torch.cuda.synchronize()
                 err, rl2, cos, ok = _match(got, want, wdt, tol)
@@ -687,7 +717,8 @@ def _train_rows(dev, gen, runs, dtypes, tag="kernels"):
 
 
 def phase_train_kernels(dev):
-    """K2 and K3 against their plain versions at the train step's shapes."""
+    """K2 and K3 against their plain versions at the train step's shapes, and
+    at stage i's, K3 there also on the gates K2 kept."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     runs = [(name, B, out, conv, SEG_LEN, ("gru_ar_train", "gru_ar_bwd"))
             for name, B, out, conv in TRAIN_CALLS]
@@ -696,7 +727,13 @@ def phase_train_kernels(dev):
     # row blocks: a bsu-64 step's fused 2B decoder, 128 rows
     runs.append((f"decoder2B_bsu{ROWS_BSU}", 2 * ROWS_BSU, 50, 306, SEG_LEN,
                  ("gru_ar_train", "gru_ar_bwd")))
-    return _train_rows(dev, gen, runs, (torch.float32, torch.bfloat16))
+    rows = _train_rows(dev, gen, runs, (torch.float32, torch.bfloat16))
+    # stage i's log-joint (float32): K2, K3 recomputing its gates, and K3 on
+    # the gates K2 kept, as the log-joint's gradient runs it
+    rows.update(_train_rows(dev, gen, [("stage_i", max(INFER_CHAINS), 50, 306, T_INFER,
+                                        ("gru_ar_train", "gru_ar_bwd", "gru_ar_bwd_saved"))],
+                            (torch.float32,)))
+    return rows
 
 
 def _vocoder(dev, seed: int, n_spk: int = 0):

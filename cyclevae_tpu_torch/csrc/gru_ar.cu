@@ -12,6 +12,8 @@
 //   o_t = h_t * mask[b, t]                        (training: inverted dropout on the GRU
 //                                                  output; h_seq[b, t] = h_t at W)
 //   y_t = o_t . Wout^T + b_out                    (fed back as the next frame's y)
+//   gates[b, t] = r, z, n, gh_n                   (training: the backward's residual,
+//                                                  float, so K3 need not recompute them)
 // The carried h stays unmasked and float in both modes.  The weights are
 // float or bf16.  As in the TPU kernels, h, y and o_t are rounded to the
 // weight type W before each product, products accumulate in float, both
@@ -67,6 +69,13 @@
 // product and gates, 5 y partial and writes, 6 arrival.  On an H100 (B=3,
 // f32) the two hops, the slice and the arrival took ~half of a frame's
 // ~8,100 cycles and the Whh product a quarter.
+//
+// Training also keeps each frame's gates r, z, n and gh_n (with b_hh's n
+// row) of every own (row, unit): the lane that forms h_t puts them in shared
+// memory, and the block writes them out in the next frame, after its hop-1
+// wait, while warp 0 sums the y slice and the other warps wait for the copy
+// of h.  So no release waits for those stores (the arrival orders every
+// earlier write of the block), and they stay off the frame's chain.
 
 #include "exchange.cuh"
 #include "gru_common.cuh"
@@ -100,6 +109,8 @@ struct Args {
   int Ys, YW;         // out rounded up to 4; y in that padded layout, B*Ys values
   int S, owners;      // y values a block sums (a multiple of 4); blocks that own some
   int lanes;          // lanes that take one (row, unit) in the gate phase: 1, 2, 4 or 8
+  float* gates;       // (B, T, 4, H) training only: r, z, n, gh_n of every frame (last, so that
+                      //   K1's parameters keep their offsets)
 };
 
 #ifdef GRU_AR_PROFILE
@@ -152,6 +163,13 @@ __host__ __device__ inline Smem smem_layout(int B, int H, int out, int U, int wb
   s.wout = s.wy + wfloats(R * Ws, wbytes);          // U*Ws  W  [u][o] = Wout[o][j0+u]
   s.total_bytes = (s.wout + wfloats((size_t)U * Ws, wbytes)) * sizeof(float);
   return s;
+}
+// Training adds the frame's own gates past the end, 4*BU floats, [g][b*U+u]
+// (a layout K1's instantiations do not see)
+template <bool kTrain>
+__host__ __device__ inline size_t smem_bytes(int B, int H, int out, int U, int wbytes) {
+  return smem_layout(B, H, out, U, wbytes).total_bytes +
+         (kTrain ? 4 * (size_t)B * U * sizeof(float) : 0);
 }
 
 // The sums over a warp of the 24 values v = the 3 gates of 8 (row, unit)
@@ -283,6 +301,21 @@ __device__ __forceinline__ void stream_store(float* gxs, int BU, int pr, float4 
   gxs[3 * BU + pr] = v.w;
 }
 
+// Training: the gates of frame t staged in gs (r, z, n, gh_n of every own
+// (row, unit), [g][b*U+u]) to gates (B, T, 4, H).  Thread kThreads-1-i takes
+// (row, unit) i, so that warp 0, which sums the y slice, has none while
+// B*U <= 224.
+__device__ __forceinline__ void gates_store(const Args& a, const float* gs, int t, int BU, int U,
+                                            int nu, int j0) {
+  for (int pr = kThreads - 1 - (int)threadIdx.x; pr < BU; pr += kThreads) {
+    const int b = pr / U, u = pr % U;
+    if (u >= nu) continue;
+    float* g = a.gates + ((size_t)b * a.T + t) * 4 * a.H + j0 + u;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) __stcs(g + (size_t)q * a.H, gs[q * BU + pr]);
+  }
+}
+
 // This block's slice of y, [k*S, k*S+S) of the padded B*Ys values, from
 // the G blocks' partials at src ([kk][S], in L2): warp w takes the columns of
 // 4 values c = w, w+8, ..., its lanes over the partials.  slice_load loads a
@@ -371,6 +404,7 @@ __global__ void __launch_bounds__(kThreads) gru_ar_kernel(Args a) {
   float* hn_s = smem + L.hn;
   float* hown_s = smem + L.hown;
   float* bhh_s = smem + L.bhh;
+  float* gs_s = smem + L.total_bytes / sizeof(float);  // training only
   W* whh_s = reinterpret_cast<W*>(smem + L.whh);  // row g*U + u: gate g of unit j0+u
   W* wy_s = reinterpret_cast<W*>(smem + L.wy);    // the same rows
   W* wout_s = reinterpret_cast<W*>(smem + L.wout);
@@ -472,6 +506,7 @@ __global__ void __launch_bounds__(kThreads) gru_ar_kernel(Args a) {
       for (int c = threadIdx.x; c < hq; c += kThreads)
         cp_async16(reinterpret_cast<char*>(h_s) + 16 * c,
                    reinterpret_cast<const char*>(hsrc) + 16 * c);
+      if constexpr (kTrain) gates_store(a, gs_s, t - 1, BU, U, nu, j0);  // while warp 0 sums
       // ---- hop 2 out, while h is copied: the slice summed, stored with its
       // tag, trj[:, t-1] ----
       if (owner && warp < S / 4) {
@@ -583,6 +618,10 @@ __global__ void __launch_bounds__(kThreads) gru_ar_kernel(Args a) {
         if constexpr (kTrain) {
           hseq[((size_t)b * T + t) * H + j] = from_f<W>(hnew);
           hn_s[pr] = round_w<W>(hnew * gx_cur[3 * BU + pr]);
+          gs_s[pr] = rg;
+          gs_s[BU + pr] = zg;
+          gs_s[2 * BU + pr] = ng;
+          gs_s[3 * BU + pr] = ghn + bhh_s[2 * U + u];
         } else {
           hn_s[pr] = round_w<W>(hnew);
         }
@@ -616,7 +655,8 @@ __global__ void __launch_bounds__(kThreads) gru_ar_kernel(Args a) {
     for (int i = 0; i < kPhases; ++i) g_prof[i] += prof_acc[i];
 #endif
 
-  // ---- the last frame's h (each block its units) and y (each block its slice) ----
+  // ---- the last frame's h (each block its units), gates and y (each block its slice) ----
+  if constexpr (kTrain) gates_store(a, gs_s, T - 1, BU, U, nu, j0);
   for (int pr = threadIdx.x; pr < BU; pr += kThreads) {
     const int b = pr / U, u = pr % U;
     if (u < nu) a.h_last[(size_t)b * H + j0 + u] = hown_s[pr];
@@ -676,7 +716,7 @@ int plan(int B, int H, int out, int* grid, int* units, int* slice, int* lanes, i
   // fewest units per block (most blocks) whose grid is co-resident
   for (int U = (H + sms - 1) / sms; U <= H; ++U) {
     const int G = (H + U - 1) / U;
-    const size_t s = smem_layout(B, H, out, U, sizeof(W)).total_bytes;
+    const size_t s = smem_bytes<kTrain>(B, H, out, U, sizeof(W));
     if (s > (size_t)optin) continue;
     int occ = 0;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, gru_ar_kernel<W, kTrain>, kThreads, s);
@@ -696,20 +736,21 @@ int plan(int B, int H, int out, int* grid, int* units, int* slice, int* lanes, i
 template <typename W, bool kTrain>
 int launch(const void* gx, const void* wy, const void* whh, const void* bhh, const void* wout,
            const void* bout, const void* y0, const void* h0, const void* mask, void* trj,
-           void* y_last, void* h_last, void* hseq, void* hbuf, void* ypart, void* ybuf, int B,
-           int T, int H, int out, int grid, int units, int slice, int lanes, int smem,
-           void* stream) {
+           void* y_last, void* h_last, void* hseq, void* gates, void* hbuf, void* ypart,
+           void* ybuf, int B, int T, int H, int out, int grid, int units, int slice, int lanes,
+           int smem, void* stream) {
   const int Ys = (int)up4(out), YW = B * Ys;
   if (B < 1 || T < 1 || H < 1 || out < 1 || units < 1 || (long long)grid * units < H ||
       slice < 4 || slice % 4 || (long long)grid * slice < YW || (lanes & (lanes - 1)) ||
       lanes < 1 || lanes > 8 || (lanes > 1 && (long long)B * units * lanes > kThreads) ||
-      (kTrain && (mask == nullptr || hseq == nullptr)))
+      (kTrain && (mask == nullptr || hseq == nullptr || gates == nullptr)))
     return cudaErrorInvalidValue;
   Args a{gx, wy, whh, static_cast<const float*>(bhh), wout, static_cast<const float*>(bout),
          static_cast<const float*>(y0), static_cast<const float*>(h0), mask,
          static_cast<float*>(trj), static_cast<float*>(y_last), static_cast<float*>(h_last), hseq,
          hbuf, static_cast<float*>(ypart), static_cast<unsigned long long*>(ybuf), B, T, H, out,
-         units, w_row(H, sizeof(W)), Ys, YW, slice, (YW + slice - 1) / slice, lanes};
+         units, w_row(H, sizeof(W)), Ys, YW, slice, (YW + slice - 1) / slice, lanes,
+         static_cast<float*>(gates)};
   cudaError_t e = allow_smem<W, kTrain>();
   if (e != cudaSuccess) return e;
   void* args[] = {&a};
@@ -753,37 +794,38 @@ int gru_ar_f32(const void* gx, const void* wy, const void* whh, const void* bhh,
                void* h_last, void* hbuf, void* ypart, void* ybuf, int B, int T, int H, int out,
                int grid, int units, int slice, int lanes, int smem, void* stream) {
   return launch<float, false>(gx, wy, whh, bhh, wout, bout, y0, h0, nullptr, trj, y_last, h_last,
-                              nullptr, hbuf, ypart, ybuf, B, T, H, out, grid, units, slice, lanes,
-                              smem, stream);
+                              nullptr, nullptr, hbuf, ypart, ybuf, B, T, H, out, grid, units,
+                              slice, lanes, smem, stream);
 }
 int gru_ar_bf16(const void* gx, const void* wy, const void* whh, const void* bhh, const void* wout,
                 const void* bout, const void* y0, const void* h0, void* trj, void* y_last,
                 void* h_last, void* hbuf, void* ypart, void* ybuf, int B, int T, int H, int out,
                 int grid, int units, int slice, int lanes, int smem, void* stream) {
   return launch<__nv_bfloat16, false>(gx, wy, whh, bhh, wout, bout, y0, h0, nullptr, trj, y_last,
-                                      h_last, nullptr, hbuf, ypart, ybuf, B, T, H, out, grid,
-                                      units, slice, lanes, smem, stream);
+                                      h_last, nullptr, nullptr, hbuf, ypart, ybuf, B, T, H, out,
+                                      grid, units, slice, lanes, smem, stream);
 }
 
 // training forward: mask (B, T, H) in, h_seq (B, T, H) out, both at the
-// weight type; the rest as gru_ar_*
+// weight type, and gates (B, T, 4, H) out, float: r, z, n and gh_n (with
+// b_hh's n row) of every frame; the rest as gru_ar_*
 int gru_ar_train_f32(const void* gx, const void* wy, const void* whh, const void* bhh,
                      const void* wout, const void* bout, const void* y0, const void* h0,
                      const void* mask, void* trj, void* y_last, void* h_last, void* hseq,
-                     void* hbuf, void* ypart, void* ybuf, int B, int T, int H, int out, int grid,
-                     int units, int slice, int lanes, int smem, void* stream) {
+                     void* gates, void* hbuf, void* ypart, void* ybuf, int B, int T, int H,
+                     int out, int grid, int units, int slice, int lanes, int smem, void* stream) {
   return launch<float, true>(gx, wy, whh, bhh, wout, bout, y0, h0, mask, trj, y_last, h_last,
-                             hseq, hbuf, ypart, ybuf, B, T, H, out, grid, units, slice, lanes,
-                             smem, stream);
+                             hseq, gates, hbuf, ypart, ybuf, B, T, H, out, grid, units, slice,
+                             lanes, smem, stream);
 }
 int gru_ar_train_bf16(const void* gx, const void* wy, const void* whh, const void* bhh,
                       const void* wout, const void* bout, const void* y0, const void* h0,
                       const void* mask, void* trj, void* y_last, void* h_last, void* hseq,
-                      void* hbuf, void* ypart, void* ybuf, int B, int T, int H, int out, int grid,
-                      int units, int slice, int lanes, int smem, void* stream) {
+                      void* gates, void* hbuf, void* ypart, void* ybuf, int B, int T, int H,
+                      int out, int grid, int units, int slice, int lanes, int smem, void* stream) {
   return launch<__nv_bfloat16, true>(gx, wy, whh, bhh, wout, bout, y0, h0, mask, trj, y_last,
-                                     h_last, hseq, hbuf, ypart, ybuf, B, T, H, out, grid, units,
-                                     slice, lanes, smem, stream);
+                                     h_last, hseq, gates, hbuf, ypart, ybuf, B, T, H, out, grid,
+                                     units, slice, lanes, smem, stream);
 }
 
 #ifdef GRU_AR_PROFILE

@@ -4,8 +4,9 @@
 // Replaces the Pallas TPU kernel cyclevae_tpu/ops/pallas_gru.py:_kernel_bwd
 // (wrapper pallas_gru_ar_bwd).  For t = T-1 down to 0, with the carries dh
 // (B, H) and dy (B, out) starting at dh_T and dy_T:
-//   recompute  gx = gates_x[t] + y_prev[t] . Wy^T,  gh = h_prev[t] . Whh^T + b_hh,
-//              r, z, n as in the forward (ghn = gh_n)
+//   the gates  r, z, n and ghn = gh_n of step t: the forward's (K2 keeps them),
+//              or recomputed: gx = gates_x[t] + y_prev[t] . Wy^T,
+//              gh = h_prev[t] . Whh^T + b_hh, r, z, n as in the forward
 //   dy_tot = d_trj[t] + dy                         (emitted)
 //   dh_tot = dh + (dy_tot . Wout) * mask[t]
 //   dz = dh_tot (h_prev - n), dn = dh_tot (1 - z), dgn = dn (1 - n^2),
@@ -26,18 +27,21 @@
 //   * ONE cooperative launch; block k owns hidden units [kU, kU+U) and so 3U
 //     gate rows (U = 8, 128 blocks at H = 1024).  Its 3U rows of Whh and of
 //     Wy and its U columns of Wout sit in shared memory.
-//   * The gates need no carry, so they are recomputed for ALL steps before
-//     the step loop, as one product per block: (B*T rows of h_prev) x (its 3U
-//     Whh rows), tiles of h_prev copied with cp.async (double-buffered), each
-//     thread 4 rows x 4 units' 12 gate rows (16 loads from shared memory feed
-//     192 FMAs); then y_prev . Wy and the gate nonlinearity, through shared
-//     memory to threads that run over units, so that the streamed gates_x,
-//     mask and h_prev loads and the stores coalesce.  r, z, n, ghn, h_prev
-//     and mask of every (row, step, own unit) go to scratch (L2), from which
-//     each step copies its 1.9 KB (B=10) one step ahead.  Inside the loop the
-//     same work ran as short latency-bound bursts (~10K cycles a step on an
-//     H100); before it, every block reading all of h_prev makes it run at the
-//     L2's read rate instead (~6.4K cycles a step at B=10, T=560).
+//   * The gates need no carry.  The training forward (K2) keeps r, z, n and
+//     ghn of every (row, step, unit) in float, (B, T, 4, H); each step copies
+//     its block's share, 1 KB at B=8, one step ahead (cp.async), and h_prev
+//     and mask ride their own streams into registers, one step ahead too.
+//     A caller that holds no such gates has them recomputed for ALL steps
+//     before the step loop (gates_all), into the same layout in scratch, as
+//     one product per block: (B*T rows of h_prev) x (its 3U Whh rows), tiles
+//     of h_prev copied with cp.async (double-buffered), each thread 4 rows x
+//     4 units' 12 gate rows (16 loads from shared memory feed 192 FMAs); then
+//     y_prev . Wy and the gate nonlinearity, through shared memory to threads
+//     that run over units, so that the streamed gates_x loads and the stores
+//     coalesce.  Inside the loop that work ran as short latency-bound bursts
+//     (~10K cycles a step on an H100); before it, every block reading all of
+//     h_prev makes it run at the L2's read rate instead (~6.4K cycles a step
+//     at B=10, T=560); read from the forward, it costs nothing of the step.
 //   * dh without a gather: after the cotangent algebra of its units, block kk
 //     multiplies its own dgh (B, 3U) by its own rows of Whh, a partial of dh
 //     for ALL H columns, and writes it laid out by the block that owns each
@@ -72,8 +76,9 @@
 //
 // Built with -DGRU_AR_BWD_PROFILE, thread 0 of block 0 sums the SM cycles
 // each phase of a step takes, and those of the gate recompute before the
-// loop (gru_ar_bwd_profile_read; ops/gru_ar_bwd_phases.py names and prints
-// them; each PROF_MARK(i) closes phase i).
+// loop, or of the first step's copy where the gates are given
+// (gru_ar_bwd_profile_read; ops/gru_ar_bwd_phases.py names and prints them;
+// each PROF_MARK(i) closes phase i).
 
 #include "exchange.cuh"
 #include "gru_common.cuh"
@@ -88,7 +93,7 @@ constexpr int kPB = 10;  // batch rows the partial product of dh accumulates at 
 constexpr int kGR = 4, kGU = 4, kRG = kThreads / 2;
 constexpr int kMT = kGR * kRG;  // rows of h_prev in one tile
 constexpr int kKC = 16;         // columns of a tile copied at once
-constexpr int kQ = 6;    // per (step, row, unit): r, z, n, ghn, h_prev, mask
+constexpr int kGates = 4;       // per (row, step, unit): r, z, n, ghn
 
 struct Args {
   const float* dtrj;   // (B, T, out)
@@ -107,7 +112,8 @@ struct Args {
   float* dytot;        // (B, T, out)
   float* dh0;          // (B, H)
   float* dy0;          // (B, out)
-  float* gbuf;         // (G, kQ, B, T, Us) scratch: the recomputed gates of each block
+  float* gates;        // (B, T, 4, H) r, z, n, ghn of every (row, step, unit): the forward's,
+                       //   or scratch that gates_all fills
   float* pbuf;         // (2, G, G, B, Us) scratch: [p][dest][kk] block kk's partial of dh
                        //   for block dest's units
   float* dbuf;         // (2, G, DS) scratch: [p][kk] block kk's partial of dy
@@ -117,6 +123,8 @@ struct Args {
                        //   bytes); U and B rounded up to 4
   int S, DS, YW;       // dy values a block sums (a multiple of 4), G*S, B*out rounded up to even
   int stage_kk;        // dh partials (of the G) copied per pass
+  int recompute;       // whether gates_all fills gates first
+  int vec;             // whether each row's units of gates are whole 16-byte pieces
 };
 
 #ifdef GRU_AR_BWD_PROFILE
@@ -161,8 +169,8 @@ __host__ __device__ inline Smem smem_layout(int B, int H, int out, int U, int st
   region = region > rows_y ? region : rows_y;
   s.dtr = region;                               // B*out    d_trj[t]
   s.dyt = s.dtr + BO;                           // B*out+1  dy_tot (even length)
-  s.gate = s.dyt + up4((size_t)B * out + 1);    // kQ*B*Us  the step's recomputed gates
-  s.dh = s.gate + kQ * (size_t)B * Us;          // B*U      own dh carry
+  s.gate = s.dyt + up4((size_t)B * out + 1);    // 4*B*Us   the step's gates, [b][q][u]
+  s.dh = s.gate + kGates * (size_t)B * Us;      // B*U      own dh carry
   s.dhz = s.dh + up4((size_t)B * U);            // B*U      own dh_tot * z
   s.dgh = s.dhz + up4((size_t)B * U);           // 3U*Bp    own dgh rounded to W, [row][b]
   s.dgx = s.dgh + R * Bp;                       // 3U*Bp    own dgx rounded to W, [row][b]
@@ -216,28 +224,24 @@ __device__ __forceinline__ void tile_copy(const Args& a, const Ptrs<W>& P, int m
   }
 }
 
-// The gates of every (step, row, own unit), before the step loop, as one
-// product per block of the B*T rows m = b*T + t of h_prev with its 3U Whh
-// rows.  Tiles of kMT rows, in another order in each block (so that the
-// blocks do not all read the same lines at once); thread (qg, rg) takes rows
-// m0 + rg + kRG*j (j < kGR) and units qg*kGU + uu (uu < kGU; + 8, 16, ... past
-// 8 units), all 3 gates: kGR + 3 kGU loads from shared memory feed
-// 12 kGR kGU FMAs.  h_prev streams through double-buffered tiles of kKC
-// columns (cp.async); then, per block of kRG rows, y_prev . Wy, the gates
-// and the six values of each (row, unit) to gbuf.  Ends with a
-// __syncthreads().
+// The gates of every (row, step, own unit) where the caller gives none,
+// before the step loop, as one product per block of the B*T rows m = b*T +
+// t of h_prev with its 3U Whh rows.  Tiles of kMT rows, in another order in
+// each block (so that the blocks do not all read the same lines at once);
+// thread (qg, rg) takes rows m0 + rg + kRG*j (j < kGR) and units qg*kGU + uu
+// (uu < kGU; + 8, 16, ... past 8 units), all 3 gates: kGR + 3 kGU loads from
+// shared memory feed 12 kGR kGU FMAs.  h_prev streams through
+// double-buffered tiles of kKC columns (cp.async); then, per block of kRG
+// rows, y_prev . Wy, the gates and r, z, n, ghn of each (row, unit) to
+// gates.  Ends with a __syncthreads().
 template <typename W>
 __device__ void gates_all(const Args& a, const Ptrs<W>& P, int j0, int nu) {
   if (nu == 0) return;  // the whole block: it owns no units
-  const int B = a.B, T = a.T, H = a.H, OUT = a.out, U = a.U, Hs = a.Hs, Rs = a.Rs, Us = a.Us;
+  const int B = a.B, T = a.T, H = a.H, OUT = a.out, U = a.U, Hs = a.Hs, Rs = a.Rs;
   const int M = B * T, ts = tile_stride(sizeof(W)), nK = (Hs + kKC - 1) / kKC;
   const int qg = threadIdx.x / kRG, rg = threadIdx.x % kRG;  // qg is uniform in a warp
   const W* gx = static_cast<const W*>(a.gx);
-  const W* mask = static_cast<const W*>(a.mask);
-  const W* hprev = static_cast<const W*>(a.hprev);
   const W* yprev = static_cast<const W*>(a.yprev);
-  float* gout = a.gbuf + (size_t)blockIdx.x * kQ * B * T * Us;
-  const size_t gq = (size_t)B * T * Us;  // one quantity's stride in gbuf
   const int tiles = (M + kMT - 1) / kMT;
   for (int ub = 0; ub < U; ub += 2 * kGU) {
     int wrow[kGU];  // offset of the unit's r row in shared memory (z, n follow by U rows)
@@ -280,8 +284,8 @@ __device__ void gates_all(const Args& a, const Ptrs<W>& P, int j0, int nu) {
       // per block of kRG rows (a thread's row j): y_prev . Wy (the r and z rows
       // into the same sums as h_prev's, n apart) by the same threads; the sums
       // through shared memory to threads that run over units, which load the
-      // streamed gates_x, mask and h_prev, form the gates and store the six
-      // values of each (row, unit) to gbuf, both coalesced
+      // streamed gates_x, form the gates and store the four values of each
+      // (row, unit) to gates, both coalesced
 #pragma unroll
       for (int j = 0; j < kGR; ++j) {  // unrolled: acc stays in registers
         const int r0 = m0 + kRG * j, nrows = min(kRG, M - r0);
@@ -317,34 +321,29 @@ __device__ void gates_all(const Args& a, const Ptrs<W>& P, int j0, int nu) {
         }
         __syncthreads();
         constexpr int kPer = kRG * 2 * kGU / kThreads;  // (row, unit) pairs a thread finishes
-        float sg[kPer][3], sm[kPer], sh[kPer];  // streamed values, all loads in flight
+        float sg[kPer][3];  // streamed gates_x, all loads in flight
 #pragma unroll
         for (int e = 0; e < kPer; ++e) {
           const int pr = threadIdx.x + e * kThreads, r = pr / (2 * kGU);
           const int uc = min(ub + pr % (2 * kGU), nu - 1), m = r0 + min(r, nrows - 1);
-          const size_t gi = (size_t)m * 3 * H + j0 + uc, hi = (size_t)m * H + j0 + uc;
+          const size_t gi = (size_t)m * 3 * H + j0 + uc;
           sg[e][0] = to_f(gx[gi]);
           sg[e][1] = to_f(gx[gi + H]);
           sg[e][2] = to_f(gx[gi + 2 * H]);
-          sm[e] = to_f(mask[hi]);
-          sh[e] = to_f(hprev[hi]);
         }
 #pragma unroll
         for (int e = 0; e < kPer; ++e) {
           const int pr = threadIdx.x + e * kThreads, r = pr / (2 * kGU), u = ub + pr % (2 * kGU);
           if (r >= nrows || u >= nu) continue;
           const float4 sum = *reinterpret_cast<const float4*>(sums + (size_t)pr * 4);
-          const int m = r0 + r, b = m / T, t = m % T;
           const float rg_ = sigmoid_f(sg[e][0] + (sum.x + P.bhh[u]));
           const float zg = sigmoid_f(sg[e][1] + (sum.y + P.bhh[U + u]));
           const float ghn = sum.z + P.bhh[2 * U + u];
-          float* o = gout + ((size_t)b * T + t) * Us + u;  // quantity q at + q * gq
+          float* o = a.gates + (size_t)(r0 + r) * kGates * H + j0 + u;  // gate q at + q * H
           __stcg(o, rg_);
-          __stcg(o + gq, zg);
-          __stcg(o + 2 * gq, tanhf((sg[e][2] + sum.w) + rg_ * ghn));
-          __stcg(o + 3 * gq, ghn);
-          __stcg(o + 4 * gq, sh[e]);
-          __stcg(o + 5 * gq, sm[e]);
+          __stcg(o + H, zg);
+          __stcg(o + 2 * H, tanhf((sg[e][2] + sum.w) + rg_ * ghn));
+          __stcg(o + 3 * H, ghn);
         }
         __syncthreads();  // the tile is refilled by the next block of rows or tile
       }
@@ -352,15 +351,27 @@ __device__ void gates_all(const Args& a, const Ptrs<W>& P, int j0, int nu) {
   }
 }
 
-// Step t's recomputed gates (from gbuf: kQ x B pieces of Us floats) and
-// d_trj[t] into shared memory
+// Step t's gates of the block's nu units (B x 4 runs of nu floats of gates,
+// 16-byte pieces where they are whole, else 4 bytes at a time) and d_trj[t]
+// into shared memory
 template <typename W>
-__device__ __forceinline__ void step_copy(const Args& a, const Ptrs<W>& P, int t) {
-  const int Us = a.Us, per = Us / 4, n = kQ * a.B * per;  // 16-byte pieces
-  const float* g = a.gbuf + (size_t)blockIdx.x * kQ * a.B * a.T * Us + (size_t)t * Us;
-  for (int c = threadIdx.x; c < n; c += kThreads) {
-    const int qb = c / per, x = c % per;  // qb = q * B + b
-    cp_async16(P.gate + (size_t)qb * Us + 4 * x, g + (size_t)qb * a.T * Us + 4 * x);
+__device__ __forceinline__ void step_copy(const Args& a, const Ptrs<W>& P, int t, int j0, int nu) {
+  const int Us = a.Us, H = a.H;
+  const float* g = a.gates + (size_t)t * kGates * H + j0;  // row b's gate q at + (b T 4 + q) H
+  const size_t row = (size_t)a.T * kGates * H;
+  if (a.vec) {
+    const int per = (nu + 3) / 4, n = kGates * a.B * per;
+    for (int c = threadIdx.x; c < n; c += kThreads) {
+      const int bq = c / per, x = c - bq * per;  // bq = b * 4 + q
+      cp_async16(P.gate + (size_t)bq * Us + 4 * x,
+                 g + (bq >> 2) * row + (size_t)(bq & 3) * H + 4 * x);
+    }
+  } else {
+    const int n = kGates * a.B * nu;
+    for (int c = threadIdx.x; c < n; c += kThreads) {
+      const int bq = c / nu, u = c - bq * nu;
+      cp_async4(P.gate + (size_t)bq * Us + u, g + (bq >> 2) * row + (size_t)(bq & 3) * H + u);
+    }
   }
   for (int idx = threadIdx.x; idx < a.B * a.out; idx += kThreads) {
     const int b = idx / a.out, o = idx % a.out;
@@ -502,7 +513,7 @@ template <typename W>
 __global__ void __launch_bounds__(kThreads, 1) gru_ar_bwd_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   const int B = a.B, T = a.T, H = a.H, OUT = a.out, U = a.U, Rs = a.Rs, Us = a.Us, Bp = a.Bp;
-  const int G = gridDim.x, k = blockIdx.x, j0 = k * U, BO = B * OUT, YW = a.YW, BUs = B * Us;
+  const int G = gridDim.x, k = blockIdx.x, j0 = k * U, BO = B * OUT, YW = a.YW;
   const int nu = max(0, min(U, H - j0));  // units this block owns (last block may be ragged)
   const Smem L = smem_layout(B, H, OUT, U, a.stage_kk, sizeof(W));
 
@@ -525,6 +536,8 @@ __global__ void __launch_bounds__(kThreads, 1) gru_ar_bwd_kernel(Args a) {
   const W* wy = static_cast<const W*>(a.wy);
   const W* whh = static_cast<const W*>(a.whh);
   const W* wout = static_cast<const W*>(a.wout);
+  const W* hprev = static_cast<const W*>(a.hprev);
+  const W* mask = static_cast<const W*>(a.mask);
   W* dgx = static_cast<W*>(a.dgx);
   W* dgh = static_cast<W*>(a.dgh);
   unsigned* count1 = reinterpret_cast<unsigned*>(a.ybuf + 2 * (size_t)YW);  // partials stored
@@ -555,11 +568,21 @@ __global__ void __launch_bounds__(kThreads, 1) gru_ar_bwd_kernel(Args a) {
 #ifdef GRU_AR_BWD_PROFILE
   long long prof_acc[kPhases] = {}, prof_t = clock64();
 #endif
-  // ---- the gates of every step, then step T-1's share of them ----
-  gates_all<W>(a, P, j0, nu);
-  __threadfence_block();  // this block's gbuf stores before its copies of them
-  __syncthreads();
-  step_copy<W>(a, P, T - 1);
+  // ---- the gates of every step where none are given, then step T-1's
+  // share of them; h_prev and mask of this thread's (row, unit) (the first
+  // of the algebra's passes) one step ahead, in registers at W (converted
+  // where they are used, so that no thread waits for the load at its
+  // issue) ----
+  if (a.recompute) {
+    gates_all<W>(a, P, j0, nu);
+    __threadfence_block();  // this block's gate stores before its copies of them
+    __syncthreads();
+  }
+  step_copy<W>(a, P, T - 1, j0, nu);
+  const int ab = threadIdx.x / U, au = threadIdx.x % U;
+  const bool ahead = threadIdx.x < B * U && au < nu;
+  const size_t at0 = ((size_t)ab * T + T - 1) * H + j0 + au;
+  W hp_next = ahead ? hprev[at0] : from_f<W>(0.f), m_next = ahead ? mask[at0] : from_f<W>(0.f);
   cp_async_wait_all();
   __syncthreads();
   PROF_MARK(7);
@@ -614,8 +637,11 @@ __global__ void __launch_bounds__(kThreads, 1) gru_ar_bwd_kernel(Args a) {
 
     // ---- the cotangent algebra, a thread per own (row, unit) ----
     for (int bu = threadIdx.x; bu < B * U; bu += kThreads) {
-      const int b = bu / U, u = bu % U;
+      const bool first = bu == (int)threadIdx.x;
+      const int b = first ? ab : bu / U, u = first ? au : bu % U;
       if (u >= nu) continue;
+      const size_t at = ((size_t)b * T + t) * H + j0 + u;
+      const float hp = to_f(first ? hp_next : hprev[at]), m = to_f(first ? m_next : mask[at]);
       const float* dt = P.dyt + b * OUT;
       const W* wo = P.wout + u * OUT;
       float s0 = 0.f, s1 = 0.f;  // dy_tot . Wout[:, j], dy_tot rounded to W
@@ -625,9 +651,8 @@ __global__ void __launch_bounds__(kThreads, 1) gru_ar_bwd_kernel(Args a) {
         s1 = fmaf(to_f(wo[o + 1]), round_w<W>(dt[o + 1]), s1);
       }
       if (o < OUT) s0 = fmaf(to_f(wo[o]), round_w<W>(dt[o]), s0);
-      const float* g = P.gate + b * Us + u;
-      const float rg = g[0], zg = g[BUs], ng = g[2 * BUs], ghn = g[3 * BUs], hp = g[4 * BUs],
-                  m = g[5 * BUs];
+      const float* g = P.gate + (size_t)b * kGates * Us + u;
+      const float rg = g[0], zg = g[Us], ng = g[2 * Us], ghn = g[3 * Us];
       const float dh_tot = P.dh[bu] + (s0 + s1) * m;
       const float dz = dh_tot * (hp - ng);
       const float dn = dh_tot * (1.f - zg);
@@ -651,7 +676,14 @@ __global__ void __launch_bounds__(kThreads, 1) gru_ar_bwd_kernel(Args a) {
       P.dhz[bu] = dh_tot * zg;
     }
     __syncthreads();
-    if (s + 1 < T) step_copy<W>(a, P, t - 1);  // lands during the next step's exchange
+    if (s + 1 < T) {  // land during the next step's exchange
+      step_copy<W>(a, P, t - 1, j0, nu);
+      if (ahead) {
+        const size_t at = ((size_t)ab * T + t - 1) * H + j0 + au;
+        hp_next = hprev[at];
+        m_next = mask[at];
+      }
+    }
     PROF_MARK(4);
 
     // ---- the partials of dh and dy, then the block's arrival (hop 1) ----
@@ -711,20 +743,23 @@ template <typename W>
 int launch(const void* dtrj, const void* gx, const void* yprev, const void* hprev,
            const void* mask, const void* wout, const void* whh, const void* wy, const void* bhh,
            const void* dhT, const void* dyT, void* dgx, void* dgh, void* dytot, void* dh0,
-           void* dy0, void* gbuf, void* pbuf, void* dbuf, void* ybuf, int B, int T, int H, int out,
-           int grid, int units, int stage_kk, int smem, void* stream) {
+           void* dy0, void* gates, void* pbuf, void* dbuf, void* ybuf, int B, int T, int H, int out,
+           int grid, int units, int stage_kk, int smem, int recompute, void* stream) {
   if (B < 1 || T < 1 || H < 1 || out < 1 || units < 1 || units > kThreads || stage_kk < 1 ||
-      stage_kk > grid || (long long)grid * units < H || (long long)(grid - 1) * units >= H)
+      stage_kk > grid || (long long)grid * units < H || (long long)(grid - 1) * units >= H ||
+      gates == nullptr)
     return cudaErrorInvalidValue;
+  const int vec =
+      units % 4 == 0 && H % 4 == 0 && reinterpret_cast<unsigned long long>(gates) % 16 == 0;
   const int S = dy_slice(B, out, grid);
   Args a{static_cast<const float*>(dtrj), gx, yprev, hprev, mask, wout, whh, wy,
          static_cast<const float*>(bhh), static_cast<const float*>(dhT),
          static_cast<const float*>(dyT), dgx, dgh, static_cast<float*>(dytot),
-         static_cast<float*>(dh0), static_cast<float*>(dy0), static_cast<float*>(gbuf),
+         static_cast<float*>(dh0), static_cast<float*>(dy0), static_cast<float*>(gates),
          static_cast<float*>(pbuf), static_cast<float*>(dbuf),
          static_cast<unsigned long long*>(ybuf), B, T, H, out, units, (int)up4(H),
          row_stride(H, sizeof(W)), (int)up4(units), (int)up4(B), S, grid * S,
-         (B * out + 1) / 2 * 2, stage_kk};
+         (B * out + 1) / 2 * 2, stage_kk, recompute != 0, vec};
   cudaError_t e = cudaFuncSetAttribute(gru_ar_bwd_kernel<W>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -749,29 +784,32 @@ int gru_ar_bwd_plan_bf16(int B, int H, int out, int* grid, int* units, int* stag
   return plan<__nv_bfloat16>(B, H, out, grid, units, stage_kk, smem);
 }
 
-// gbuf: (grid, 6, B, T, Us), pbuf: (2, grid, grid, B, Us) and dbuf: (2, grid,
-// grid * S) floats, none initialised; ybuf: 2 * YW + 1 8-byte words, zeroed
-// (Us = units rounded up to a multiple of 4, S = ceil(B * out / grid)
-// rounded up to a multiple of 4, YW = B * out rounded up to even)
+// gates: (B, T, 4, H) floats, r, z, n and ghn of every (row, step, unit):
+// the training forward's (recompute 0), or scratch, not initialised, that the
+// kernel fills from gates_x, y_prev and h_prev first (recompute 1); pbuf: (2,
+// grid, grid, B, Us) and dbuf: (2, grid, grid * S) floats, none initialised;
+// ybuf: 2 * YW + 1 8-byte words, zeroed (Us = units rounded up to a multiple
+// of 4, S = ceil(B * out / grid) rounded up to a multiple of 4, YW = B * out
+// rounded up to even)
 int gru_ar_bwd_f32(const void* dtrj, const void* gx, const void* yprev, const void* hprev,
                    const void* mask, const void* wout, const void* whh, const void* wy,
                    const void* bhh, const void* dhT, const void* dyT, void* dgx, void* dgh,
-                   void* dytot, void* dh0, void* dy0, void* gbuf, void* pbuf, void* dbuf,
+                   void* dytot, void* dh0, void* dy0, void* gates, void* pbuf, void* dbuf,
                    void* ybuf, int B, int T, int H, int out, int grid, int units, int stage_kk,
-                   int smem, void* stream) {
+                   int smem, int recompute, void* stream) {
   return launch<float>(dtrj, gx, yprev, hprev, mask, wout, whh, wy, bhh, dhT, dyT, dgx, dgh, dytot,
-                       dh0, dy0, gbuf, pbuf, dbuf, ybuf, B, T, H, out, grid, units, stage_kk, smem,
-                       stream);
+                       dh0, dy0, gates, pbuf, dbuf, ybuf, B, T, H, out, grid, units, stage_kk,
+                       smem, recompute, stream);
 }
 int gru_ar_bwd_bf16(const void* dtrj, const void* gx, const void* yprev, const void* hprev,
                     const void* mask, const void* wout, const void* whh, const void* wy,
                     const void* bhh, const void* dhT, const void* dyT, void* dgx, void* dgh,
-                    void* dytot, void* dh0, void* dy0, void* gbuf, void* pbuf, void* dbuf,
+                    void* dytot, void* dh0, void* dy0, void* gates, void* pbuf, void* dbuf,
                     void* ybuf, int B, int T, int H, int out, int grid, int units, int stage_kk,
-                    int smem, void* stream) {
+                    int smem, int recompute, void* stream) {
   return launch<__nv_bfloat16>(dtrj, gx, yprev, hprev, mask, wout, whh, wy, bhh, dhT, dyT, dgx,
-                               dgh, dytot, dh0, dy0, gbuf, pbuf, dbuf, ybuf, B, T, H, out, grid,
-                               units, stage_kk, smem, stream);
+                               dgh, dytot, dh0, dy0, gates, pbuf, dbuf, ybuf, B, T, H, out, grid,
+                               units, stage_kk, smem, recompute, stream);
 }
 
 #ifdef GRU_AR_BWD_PROFILE

@@ -11,7 +11,14 @@ contracts:
   projection, and ``h_seq`` (B,T,H) at the weight dtype, the backward's
   residual;
 * ``cuda_gru_ar_bwd`` (K3, ``pallas_gru_ar_bwd``): the reverse-time
-  cotangent scan, recomputing each step's gates from the streamed residuals.
+  cotangent scan, recomputing each step's gates from the streamed residuals
+  where it is not given them;
+* ``cuda_gru_ar_train_gates``: K2 that also returns the gates its frames
+  formed, ``gates`` (B,T,4,H) float32 (r, z, n and gh_n = h_{t-1} . Whh_n +
+  b_hh_n), which ``cuda_gru_ar_bwd(..., gates=)`` then reads instead of
+  recomputing them: the training path (``ops/gru_ar_vjp.py``).  Each K3
+  launch (one a row block) counts ``gru_bwd.gates_saved`` or
+  ``gru_bwd.gates_recomputed`` (``utils.profiling``).
 
 Each runs a hand-written kernel (``csrc/gru_ar.cu`` for K1 and K2,
 ``csrc/gru_ar_bwd.cu`` for K3; design notes there) for CUDA tensors, and its
@@ -20,14 +27,15 @@ plain version (``gru_ar_reference``, ``gru_ar_train_reference``,
 the kernel launches or the call raises.
 
 Every block of a kernel holds all B rows of h in shared memory, so a plan
-exists up to a largest B (``max_batch``: at H = 1024 on an H100, K1 and K2
-46 rows in float32 and 82 in bf16, K3 51 and 148).  A larger batch runs in
-row blocks: the rows of a GRU batch are independent, so the wrapper slices
-every per-row input into consecutive blocks of at most ``max_batch`` rows,
-launches the same kernel once per block and concatenates the outputs along
-B.  A batch within the limit is one launch.  Each wrapper's ``launches``
-counts kernel launches, not calls: one per row block (added to after each
-launch that succeeded, under a lock: ``_build.count_launch``).
+exists up to a largest B (``max_batch``: at H = 1024, out = 50 on an H100,
+K1 46 rows in float32 and 82 in bf16, K2 45 and 78, K3 55 and 159).  A
+larger batch runs in row blocks: the rows of a GRU batch are independent,
+so the wrapper slices every per-row input into consecutive blocks of at most
+``max_batch`` rows, launches the same kernel once per block and
+concatenates the outputs along B.  A batch within the limit is one launch.
+Each wrapper's ``launches`` counts kernel launches, not calls: one per row
+block (added to after each launch that succeeded, under a lock:
+``_build.count_launch``).
 
 Numerics follow the TPU kernels: every operand of a product is rounded to
 the weight dtype where the TPU kernel casts it, products accumulate in
@@ -43,6 +51,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from . import _build
+from ..utils.profiling import count
 
 _F32 = torch.float32
 _WEIGHT_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -76,18 +85,21 @@ def _forward_reference(gru_layer, out_proj, gates_x, y0, h0, out_mask, weight_dt
     gx_all = q(gates_x)
     mask = None if out_mask is None else q(out_mask)
     h, y = h0.to(_F32), y0.to(_F32)
-    trj, h_seq = [], []
+    trj, h_seq, gates = [], [], []
     for t in range(gates_x.shape[1]):
         gx = gx_all[:, t] + q(y) @ wy
         gh = q(h) @ whh + bhh
         r = torch.sigmoid(gx[:, :hidden] + gh[:, :hidden])
         z = torch.sigmoid(gx[:, hidden:2 * hidden] + gh[:, hidden:2 * hidden])
-        n = torch.tanh(gx[:, 2 * hidden:] + r * gh[:, 2 * hidden:])
+        ghn = gh[:, 2 * hidden:]
+        n = torch.tanh(gx[:, 2 * hidden:] + r * ghn)
         h = (1.0 - z) * n + z * h
         y = q(h if mask is None else h * mask[:, t]) @ wout + bout
         trj.append(y)
         h_seq.append(h.to(weight_dtype))
-    return torch.stack(trj, dim=1), y, h, torch.stack(h_seq, dim=1)
+        gates.append(torch.stack([r, z, n, ghn], dim=1))
+    return (torch.stack(trj, dim=1), y, h, torch.stack(h_seq, dim=1),
+            torch.stack(gates, dim=1))
 
 
 def gru_ar_reference(gru_layer: Dict, out_proj: Dict, gates_x: torch.Tensor,
@@ -108,33 +120,49 @@ def gru_ar_train_reference(gru_layer: Dict, out_proj: Dict, gates_x: torch.Tenso
     streams at the weight dtype, ``o = h' * mask`` rounds to it before Wout,
     ``h_seq`` is stored at it; the carried ``h`` stays unmasked float32."""
     return _forward_reference(gru_layer, out_proj, gates_x, y0, h0, out_mask,
-                              weight_dtype)
+                              weight_dtype)[:4]
+
+
+def gru_ar_gates_reference(whh: torch.Tensor, wy: torch.Tensor, bhh: torch.Tensor,
+                           gates_x: torch.Tensor, y_prev: torch.Tensor, h_prev: torch.Tensor
+                           ) -> torch.Tensor:
+    """The gates K3 recomputes where the forward's are not given, plain, for
+    all steps at once: (B,T,4,H) float32, r, z, n and gh_n = h_prev . Whh_n
+    + b_hh_n from the residuals, the operands rounded to ``whh.dtype``."""
+    q = lambda a: _q(a, whh.dtype)
+    hidden = whh.shape[1]
+    gx = q(gates_x) + q(y_prev) @ q(wy).T
+    gh = q(h_prev) @ q(whh).T + bhh.to(_F32)
+    r = torch.sigmoid(gx[..., :hidden] + gh[..., :hidden])
+    z = torch.sigmoid(gx[..., hidden:2 * hidden] + gh[..., hidden:2 * hidden])
+    ghn = gh[..., 2 * hidden:]
+    n = torch.tanh(gx[..., 2 * hidden:] + r * ghn)
+    return torch.stack([r, z, n, ghn], dim=2)
 
 
 def gru_ar_bwd_reference(wout: torch.Tensor, whh: torch.Tensor, wy: torch.Tensor,
                          bhh: torch.Tensor, d_trj: torch.Tensor, gates_x: torch.Tensor,
                          y_prev: torch.Tensor, h_prev: torch.Tensor, out_mask: torch.Tensor,
-                         d_hT: torch.Tensor, d_yT: torch.Tensor
-                         ) -> Tuple[torch.Tensor, ...]:
-    """Plain PyTorch version of K3 (``pallas_gru.py:_kernel_bwd``), step by
-    step in reverse time: recompute the gates from the residuals, then the
-    cotangent algebra.  The weight dtype is ``whh.dtype``; returns (dgx, dgh
-    (B,T,3H) at it, dy_tot (B,T,out), dh0 (B,H), dy0 (B,out) float32)."""
+                         d_hT: torch.Tensor, d_yT: torch.Tensor,
+                         gates: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of K3 (``pallas_gru.py:_kernel_bwd``): the gates
+    of every step from ``gates`` (B,T,4,H), the forward's, or, where it is
+    None, recomputed from the residuals (``gru_ar_gates_reference``); then the
+    cotangent algebra step by step in reverse time.  The weight dtype is
+    ``whh.dtype``; returns (dgx, dgh (B,T,3H) at it, dy_tot (B,T,out), dh0
+    (B,H), dy0 (B,out) float32)."""
     wdt = whh.dtype
-    hidden = whh.shape[1]
+    B, T = h_prev.shape[:2]
+    _check_gates(gates, B, T, whh.shape[1])
+    if gates is None:
+        gates = gru_ar_gates_reference(whh, wy, bhh, gates_x, y_prev, h_prev)
     q = lambda a: _q(a, wdt)
     wy_f, whh_f, wout_f = q(wy), q(whh), q(wout)
-    bhh_f = bhh.to(_F32)
-    gx_all, yp, hp, mask = q(gates_x), q(y_prev), q(h_prev), q(out_mask)
+    hp, mask = q(h_prev), q(out_mask)
     dh, dy = d_hT.to(_F32), d_yT.to(_F32)
     dgx_seq, dgh_seq, dy_seq = [], [], []
-    for t in reversed(range(gates_x.shape[1])):
-        gx = gx_all[:, t] + yp[:, t] @ wy_f.T
-        gh = hp[:, t] @ whh_f.T + bhh_f
-        r = torch.sigmoid(gx[:, :hidden] + gh[:, :hidden])
-        z = torch.sigmoid(gx[:, hidden:2 * hidden] + gh[:, hidden:2 * hidden])
-        ghn = gh[:, 2 * hidden:]
-        n = torch.tanh(gx[:, 2 * hidden:] + r * ghn)
+    for t in reversed(range(T)):
+        r, z, n, ghn = gates[:, t].unbind(dim=1)
         dy_tot = d_trj[:, t].to(_F32) + dy
         dh_tot = dh + (q(dy_tot) @ wout_f) * mask[:, t]
         dz = dh_tot * (hp[:, t] - n)
@@ -153,6 +181,16 @@ def gru_ar_bwd_reference(wout: torch.Tensor, whh: torch.Tensor, wy: torch.Tensor
         dy_seq.append(dy_tot)
     rev = lambda seq: torch.stack(seq[::-1], dim=1)
     return rev(dgx_seq), rev(dgh_seq), rev(dy_seq), dh, dy
+
+
+def _check_gates(gates: Optional[torch.Tensor], B: int, T: int, hidden: int) -> None:
+    """Raise unless ``gates`` is None or the forward's (B, T, 4, H) float32
+    gates."""
+    if gates is None:
+        return
+    if tuple(gates.shape) != (B, T, 4, hidden) or gates.dtype != _F32:
+        raise ValueError(f"gates {tuple(gates.shape)} {gates.dtype} are not (B, T, 4, H) = "
+                         f"{(B, T, 4, hidden)} float32")
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -253,7 +291,8 @@ BWD_PHASES = ("wait for the partials (hop 1)", "dy slice summed and stored with 
               "dh partials copied and summed", "wait for the tagged dy (hop 2)",
               "dy_tot . Wout and the cotangent algebra", "dh partial product, written",
               "dy partial product, written; arrival",
-              "gate recompute of all steps before the loop (per step)")
+              "gate recompute of all steps before the loop (per step), or where the gates are "
+              "given the first step's copy")
 
 
 def plan_bwd(lib: ctypes.CDLL, batch: int, hidden: int, out_dim: int,
@@ -371,16 +410,33 @@ def cuda_gru_ar_train(gru_layer: Dict, out_proj: Dict, gates_x: torch.Tensor,
                       weight_dtype: torch.dtype = _F32
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused AR-GRU over a segment for the training path (K2). Returns
-    (trj (B,T,out), y_T, h_T float32, h_seq (B,T,H) at ``weight_dtype``).
-    ``launches`` counts kernel launches: one per row block."""
-    if not _on_card(gates_x):
-        return gru_ar_train_reference(gru_layer, out_proj, gates_x, y0, h0,
-                                      out_mask, weight_dtype)
-    return _forward_blocks(cuda_gru_ar_train, gru_layer, out_proj, gates_x, y0, h0,
-                           weight_dtype, out_mask)
+    (trj (B,T,out), y_T, h_T float32, h_seq (B,T,H) at ``weight_dtype``):
+    ``cuda_gru_ar_train_gates`` without the gates.  ``launches`` counts
+    kernel launches: one per row block."""
+    return cuda_gru_ar_train_gates(gru_layer, out_proj, gates_x, y0, h0, out_mask,
+                                   weight_dtype)[:4]
 
 
 cuda_gru_ar_train.launches = 0
+
+
+def cuda_gru_ar_train_gates(gru_layer: Dict, out_proj: Dict, gates_x: torch.Tensor,
+                            y0: torch.Tensor, h0: torch.Tensor, out_mask: torch.Tensor,
+                            weight_dtype: torch.dtype = _F32
+                            ) -> Tuple[Optional[torch.Tensor], ...]:
+    """K2 as ``cuda_gru_ar_train``, one launch per row block counted there,
+    also returning the gates its frames formed: (trj, y_T, h_T, h_seq,
+    gates (B,T,4,H) float32: r, z, n, gh_n), the residual from which
+    ``cuda_gru_ar_bwd(..., gates=)`` reads each step's gates.  The kernel's
+    ``launch_rows`` always returns them; only a test's stand-in for
+    ``launch_rows`` that returns K1's four outputs reaches the None here,
+    and K3 then recomputes the gates (``gru_bwd.gates_recomputed`` counts
+    that)."""
+    if not _on_card(gates_x):
+        return _forward_reference(gru_layer, out_proj, gates_x, y0, h0, out_mask, weight_dtype)
+    outs = _forward_blocks(cuda_gru_ar_train, gru_layer, out_proj, gates_x, y0, h0,
+                           weight_dtype, out_mask)
+    return (*outs[:4], outs[4] if len(outs) > 4 else None)
 
 
 def _check_common(what: str, dev: torch.device, weight_dtype: torch.dtype, tensors) -> None:
@@ -432,7 +488,8 @@ def launch(lib: ctypes.CDLL, gru_layer: Dict, out_proj: Dict,
            weight_dtype: torch.dtype, out_mask: Optional[torch.Tensor] = None):
     """One launch of the kernel of ``lib`` (a build of ``csrc/gru_ar.cu``)
     over all B rows, uncounted: K1, or K2 when ``out_mask`` is given (which
-    also returns ``h_seq``).  Raises where B rows do not fit one launch."""
+    also returns ``h_seq`` and the gates).  Raises where B rows do not fit
+    one launch."""
     _check_forward(gru_layer, out_proj, gates_x, y0, h0, weight_dtype, out_mask)
     weights = tuple(t.contiguous() for t in _weights(gru_layer, out_proj, weight_dtype))
     return launch_rows(lib, weights, gates_x, y0, h0, weight_dtype, out_mask)
@@ -476,7 +533,8 @@ def launch_rows(lib: ctypes.CDLL, weights: Tuple[torch.Tensor, ...], gates_x: to
         if train:
             mask = out_mask.to(weight_dtype).contiguous()
             h_seq = torch.empty((B, T, hidden), dtype=weight_dtype, device=dev)
-            ptrs += [mask, trj, y_last, h_last, h_seq]
+            gates = torch.empty((B, T, 4, hidden), dtype=_F32, device=dev)
+            ptrs += [mask, trj, y_last, h_last, h_seq, gates]
         else:
             ptrs += [trj, y_last, h_last]
         ptrs += [hbuf, ypart, ybuf]
@@ -488,38 +546,47 @@ def launch_rows(lib: ctypes.CDLL, weights: Tuple[torch.Tensor, ...], gates_x: to
                  smem, _stream(dev))
         _build.check(lib, err, f"{name} launch")
     if train:
-        return trj, y_last, h_last, h_seq
+        return trj, y_last, h_last, h_seq, gates
     return trj, y_last, h_last
 
 
 def cuda_gru_ar_bwd(wout: torch.Tensor, whh: torch.Tensor, wy: torch.Tensor,
                     bhh: torch.Tensor, d_trj: torch.Tensor, gates_x: torch.Tensor,
                     y_prev: torch.Tensor, h_prev: torch.Tensor, out_mask: torch.Tensor,
-                    d_hT: torch.Tensor, d_yT: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Reverse-time cotangent scan of the AR-GRU (K3), with the gates
-    recomputed in the kernel.  Weights in torch layout: ``wout`` (out,H),
-    ``whh`` (3H,H), ``wy`` (3H,out); the weight dtype is ``whh.dtype``.
-    Returns (dgx, dgh (B,T,3H) at the weight dtype, dy_tot (B,T,out), dh0
-    (B,H), dy0 (B,out) float32).  ``launches`` counts kernel launches: one
-    per row block."""
+                    d_hT: torch.Tensor, d_yT: torch.Tensor,
+                    gates: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+    """Reverse-time cotangent scan of the AR-GRU (K3).  Each step's gates
+    come from ``gates`` (B,T,4,H) float32, the training forward's
+    (``cuda_gru_ar_train_gates``), or, where it is None, are recomputed in
+    the kernel from ``gates_x``, ``y_prev`` and ``h_prev``.  Weights in torch
+    layout: ``wout`` (out,H), ``whh`` (3H,H), ``wy`` (3H,out); the weight
+    dtype is ``whh.dtype``.  Returns (dgx, dgh (B,T,3H) at the weight dtype,
+    dy_tot (B,T,out), dh0 (B,H), dy0 (B,out) float32).  ``launches`` counts
+    kernel launches: one per row block."""
     args = (wout, whh, wy, bhh, d_trj, gates_x, y_prev, h_prev, out_mask, d_hT, d_yT)
     if not _on_card(d_trj):
-        return gru_ar_bwd_reference(*args)
-    B, _, hidden, out_dim = _check_bwd(*args)
+        return gru_ar_bwd_reference(*args, gates)
+    B, _, hidden, out_dim = _check_bwd(*args, gates)
     lib = _build.load("gru_ar_bwd")
     wdt = whh.dtype
     w = lambda a: a.to(wdt).contiguous()
     weights = (w(wout), w(whh), w(wy), bhh.to(_F32).contiguous())
     per_row = (d_trj, gates_x, y_prev, h_prev, out_mask, d_hT, d_yT)
-    return _row_blocks(cuda_gru_ar_bwd, "k3", B, hidden, out_dim, wdt, d_trj.device,
-                       lambda r: launch_bwd_rows(lib, *weights, *(a[r] for a in per_row)))
+
+    def run_rows(r):
+        outs = launch_bwd_rows(lib, *weights, *(a[r] for a in per_row),
+                               None if gates is None else gates[r])
+        count("gru_bwd.gates_recomputed" if gates is None else "gru_bwd.gates_saved")
+        return outs
+
+    return _row_blocks(cuda_gru_ar_bwd, "k3", B, hidden, out_dim, wdt, d_trj.device, run_rows)
 
 
 cuda_gru_ar_bwd.launches = 0
 
 
-def _check_bwd(wout, whh, wy, bhh, d_trj, gates_x, y_prev, h_prev, out_mask, d_hT, d_yT
-               ) -> Tuple[int, int, int, int]:
+def _check_bwd(wout, whh, wy, bhh, d_trj, gates_x, y_prev, h_prev, out_mask, d_hT, d_yT,
+               gates=None) -> Tuple[int, int, int, int]:
     """(B, T, H, out) of a K3 call; raises on shapes that do not fit."""
     if whh.dtype not in _WEIGHT_DTYPES:
         raise ValueError(f"the weight dtype must be float32 or bfloat16, got {whh.dtype}")
@@ -537,31 +604,36 @@ def _check_bwd(wout, whh, wy, bhh, d_trj, gates_x, y_prev, h_prev, out_mask, d_h
                              f"(B={B}, T={T}, H={hidden}, out={out_dim})")
     if T < 1:
         raise ValueError("the gru_ar_bwd kernel needs T >= 1")
+    _check_gates(gates, B, T, hidden)
     return B, T, hidden, out_dim
 
 
 def launch_bwd(lib: ctypes.CDLL, wout: torch.Tensor, whh: torch.Tensor, wy: torch.Tensor,
                bhh: torch.Tensor, d_trj: torch.Tensor, gates_x: torch.Tensor,
                y_prev: torch.Tensor, h_prev: torch.Tensor, out_mask: torch.Tensor,
-               d_hT: torch.Tensor, d_yT: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+               d_hT: torch.Tensor, d_yT: torch.Tensor,
+               gates: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
     """One launch of the kernel of ``lib`` (a build of
     ``csrc/gru_ar_bwd.cu``) over all B rows, uncounted; raises where B rows
     do not fit one launch."""
-    _check_bwd(wout, whh, wy, bhh, d_trj, gates_x, y_prev, h_prev, out_mask, d_hT, d_yT)
+    _check_bwd(wout, whh, wy, bhh, d_trj, gates_x, y_prev, h_prev, out_mask, d_hT, d_yT, gates)
     return launch_bwd_rows(lib, wout, whh, wy, bhh, d_trj, gates_x, y_prev, h_prev, out_mask,
-                           d_hT, d_yT)
+                           d_hT, d_yT, gates)
 
 
 def launch_bwd_rows(lib: ctypes.CDLL, wout: torch.Tensor, whh: torch.Tensor, wy: torch.Tensor,
                     bhh: torch.Tensor, d_trj: torch.Tensor, gates_x: torch.Tensor,
                     y_prev: torch.Tensor, h_prev: torch.Tensor, out_mask: torch.Tensor,
-                    d_hT: torch.Tensor, d_yT: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+                    d_hT: torch.Tensor, d_yT: torch.Tensor,
+                    gates: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
     """Allocate outputs and scratch and launch the kernel of ``lib`` on the
-    current stream for the rows given."""
+    current stream for the rows given: on the forward's ``gates``, or
+    recomputing them where it is None."""
     wdt = whh.dtype
     dev = d_trj.device
     _check_common("gru_ar_bwd", dev, wdt,
-                  (wout, whh, wy, bhh, d_trj, gates_x, y_prev, h_prev, out_mask, d_hT, d_yT))
+                  (wout, whh, wy, bhh, d_trj, gates_x, y_prev, h_prev, out_mask, d_hT, d_yT)
+                  + (() if gates is None else (gates,)))
     B, T, hidden = h_prev.shape
     out_dim = d_trj.shape[-1]
 
@@ -576,23 +648,26 @@ def launch_bwd_rows(lib: ctypes.CDLL, wout: torch.Tensor, whh: torch.Tensor, wy:
         dy_tot = torch.empty((B, T, out_dim), dtype=_F32, device=dev)
         dh0 = torch.empty((B, hidden), dtype=_F32, device=dev)
         dy0 = torch.empty((B, out_dim), dtype=_F32, device=dev)
-        # scratch: the six recomputed values (r, z, n, ghn, h_prev, mask) of
-        # every (block, row, step, unit); then, double-
-        # buffered by step parity, each block's partials of dh laid out by the
-        # block that owns the columns (units padded to 4), each block's
-        # partial of dy (slices of S values), and dy as step-tagged 8-byte
-        # words followed by the two step counts (zeroed)
+        # the gates, or scratch for the kernel to recompute them into; then,
+        # double-buffered by step parity, each block's partials of dh laid
+        # out by the block that owns the columns (units padded to 4), each
+        # block's partial of dy (slices of S values), and dy as step-tagged
+        # 8-byte words followed by the two step counts (zeroed)
+        recompute = gates is None
+        if recompute:
+            gates = torch.empty((B, T, 4, hidden), dtype=_F32, device=dev)
+        else:
+            gates = gates.contiguous()
         slice_ = _up4(-(-B * out_dim // grid))
-        gbuf = torch.empty((grid, 6, B, T, _up4(units)), dtype=_F32, device=dev)
         pbuf = torch.empty((2, grid, grid, B, _up4(units)), dtype=_F32, device=dev)
         dbuf = torch.empty((2, grid, grid * slice_), dtype=_F32, device=dev)
         words = (B * out_dim + 1) // 2 * 2
         ybuf = torch.zeros(2 * words + 1, dtype=torch.int64, device=dev)
-        ptrs = ins + [dgx, dgh, dy_tot, dh0, dy0, gbuf, pbuf, dbuf, ybuf]
+        ptrs = ins + [dgx, dgh, dy_tot, dh0, dy0, gates, pbuf, dbuf, ybuf]
 
         fn = _entry(lib, f"gru_ar_bwd_{_WEIGHT_DTYPES[wdt]}",
-                    [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                    [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         err = fn(*(_ptr(t) for t in ptrs), B, T, hidden, out_dim, grid, units, stage_kk,
-                 smem, _stream(dev))
+                 smem, int(recompute), _stream(dev))
         _build.check(lib, err, "gru_ar_bwd launch")
     return dgx, dgh, dy_tot, dh0, dy0

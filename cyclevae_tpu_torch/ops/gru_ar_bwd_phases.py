@@ -4,10 +4,13 @@
 
 Builds ``csrc/gru_ar_bwd.cu`` a second time with ``-DGRU_AR_BWD_PROFILE``
 (thread 0 of block 0 sums the SM cycles of each phase of every reversed
-step), runs it on random inputs at the given shape in float32 and bf16, and
-prints one JSON line per dtype: the plan, the normal build's us per step
-from CUDA events, each phase's cycles per step and its share, and the card's
-name and power limit.
+step), runs it at the given shape in float32 and bf16 on two paths, and
+prints one JSON line per dtype and path: the plan, the normal build's us per
+step from CUDA events, each phase's cycles per step and its share, and the
+card's name and power limit.  The paths: ``recomputed``, K3 alone on random
+inputs, recomputing its gates before the loop (phase 7); ``saved``, K2
+(``cuda_gru_ar_train_gates``) on the same weights, then K3 on its residuals
+and gates, where phase 7 is only the first step's copy.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import subprocess
 import torch
 
 from . import _build
-from .cuda_gru import BWD_PHASES, BWD_PLAN_KEYS, cuda_gru_ar_bwd, launch_bwd, plan_bwd
+from .cuda_gru import (BWD_PHASES, BWD_PLAN_KEYS, cuda_gru_ar_bwd, cuda_gru_ar_train_gates,
+                       launch_bwd, plan_bwd)
 
 
 def random_bwd_args(dev: torch.device, B: int, T: int, H: int, out: int,
@@ -35,6 +39,22 @@ def random_bwd_args(dev: torch.device, B: int, T: int, H: int, out: int,
             0.5 * r(B, T, out), torch.tanh(r(B, T, H)),
             (torch.rand((B, T, H), generator=gen, device=dev) < 0.5).float() * 2.0,
             r(B, H), r(B, out))
+
+
+def saved_bwd_args(call):
+    """K3's inputs and the gates as the training path has them: K2 run on
+    the weights, gates_x and mask of ``call`` (random_bwd_args) from y0 = 0
+    and h0 = 0, its residuals in place of the random y_prev and h_prev."""
+    wout, whh, wy, bhh, d_trj, gx, _, _, mask, d_hT, d_yT = call
+    B, out, dev, wdt = d_trj.shape[0], wout.shape[0], d_trj.device, whh.dtype
+    y0 = torch.zeros((B, out), device=dev)
+    h0 = torch.zeros((B, whh.shape[1]), device=dev)
+    trj, _, _, h_seq, gates = cuda_gru_ar_train_gates(
+        {"w_ih": wy, "w_hh": whh, "b_hh": bhh}, {"w": wout, "b": torch.zeros(out, device=dev)},
+        gx, y0, h0, mask, wdt)
+    y_prev = torch.cat([y0[:, None], trj[:, :-1]], dim=1).to(wdt)
+    h_prev = torch.cat([h0[:, None].to(wdt), h_seq[:, :-1]], dim=1)
+    return (wout, whh, wy, bhh, d_trj, gx, y_prev, h_prev, mask, d_hT, d_yT), gates
 
 
 def main() -> None:
@@ -55,22 +75,26 @@ def main() -> None:
     prof.gru_ar_bwd_profile_read.argtypes = [ctypes.c_void_p]
     prof.gru_ar_bwd_profile_read.restype = ctypes.c_int
     counts = (ctypes.c_ulonglong * len(BWD_PHASES))()
-    for wdt in (torch.float32, torch.bfloat16):
+    for wdt, path in ((w, p) for w in (torch.float32, torch.bfloat16)
+                      for p in ("recomputed", "saved")):
         call = random_bwd_args(dev, args.B, args.T, args.H, args.out, wdt)
+        gates = None
+        if path == "saved":
+            call, gates = saved_bwd_args(call)
         for _ in range(2):
-            cuda_gru_ar_bwd(*call)
+            cuda_gru_ar_bwd(*call, gates=gates)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(10):
-            cuda_gru_ar_bwd(*call)
+            cuda_gru_ar_bwd(*call, gates=gates)
         end.record()
         torch.cuda.synchronize()
         us_step = start.elapsed_time(end) / 10 * 1e3 / args.T
 
-        launch_bwd(prof, *call)
+        launch_bwd(prof, *call, gates)
         torch.cuda.synchronize()
         _build.check(prof, prof.gru_ar_bwd_profile_read(counts), "profile reset")
-        launch_bwd(prof, *call)
+        launch_bwd(prof, *call, gates)
         torch.cuda.synchronize()
         _build.check(prof, prof.gru_ar_bwd_profile_read(counts), "profile read")
         per_step = [c / args.T for c in counts]
@@ -78,6 +102,7 @@ def main() -> None:
         print(json.dumps({
             "shape": dict(B=args.B, T=args.T, H=args.H, out=args.out),
             "weight_dtype": str(wdt).split(".")[-1],
+            "gates": path,
             "plan": dict(zip(BWD_PLAN_KEYS, plan_bwd(prof, args.B, args.H, args.out, wdt))),
             "us_per_step": us_step,
             "cycles_per_step": total,

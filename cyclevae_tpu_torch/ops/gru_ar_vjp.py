@@ -3,11 +3,13 @@
 PyTorch counterpart of ``cyclevae_tpu/ops/gru_ar_vjp.py``: ``gru_ar_fused``
 is a ``torch.autograd.Function`` whose
 
-  * forward runs K2 (``ops.cuda_gru.cuda_gru_ar_train``) and saves the
-    hidden-state sequence ``h_seq``, stored at the weight dtype;
+  * forward runs K2 (``ops.cuda_gru.cuda_gru_ar_train_gates``) and saves the
+    hidden-state sequence ``h_seq``, stored at the weight dtype, and the
+    gates r, z, n and gh_n of every frame, in float32;
   * backward runs K3 (``ops.cuda_gru.cuda_gru_ar_bwd``), the reverse-time
-    scan that recomputes each step's gates from the residuals (gates_x,
-    y_prev, h_prev) and carries only the sequential cotangents dh and dy;
+    scan that reads each step's gates from the forward's, where the JAX
+    package's kernel recomputes them from the residuals (gates_x, y_prev,
+    h_prev), and carries only the sequential cotangents dh and dy;
   * weight gradients form as bulk float32 products over the per-step gate
     cotangents, as the JAX package leaves them to XLA einsums with float32
     accumulation (exact for bf16 operands).
@@ -24,7 +26,7 @@ from typing import Tuple
 
 import torch
 
-from .cuda_gru import cuda_gru_ar_bwd, cuda_gru_ar_train
+from .cuda_gru import cuda_gru_ar_bwd, cuda_gru_ar_train_gates
 
 _F32 = torch.float32
 
@@ -36,24 +38,24 @@ class _GruArFused(torch.autograd.Function):
                 out_mask):
         # the kernel takes w_ih[:, conv_dim:]; hand it just the feedback
         # columns (the conv part is already inside gates_x)
-        trj, y_T, h_T, h_seq = cuda_gru_ar_train(
+        trj, y_T, h_T, h_seq, gates = cuda_gru_ar_train_gates(
             {"w_ih": w_ih_y, "w_hh": w_hh, "b_hh": b_hh}, {"w": w_out, "b": b_out},
             gates_x, y0, h0, out_mask, weight_dtype)
         ctx.weight_dtype = weight_dtype
         ctx.save_for_backward(w_ih_y, w_hh, b_hh, w_out, b_out, gates_x, y0, h0, out_mask,
-                              trj, h_seq)
+                              trj, h_seq, gates)
         return trj, y_T, h_T
 
     @staticmethod
     def backward(ctx, d_trj, d_yT, d_hT):
         (w_ih_y, w_hh, b_hh, w_out, b_out, gates_x, y0, h0, out_mask,
-         trj, h_seq) = ctx.saved_tensors
+         trj, h_seq, gates) = ctx.saved_tensors
         wdt = ctx.weight_dtype
         y_prev = torch.cat([y0[:, None].to(_F32), trj[:, :-1]], dim=1).to(wdt)
         h_prev = torch.cat([h0[:, None].to(wdt), h_seq[:, :-1]], dim=1)
         dgx, dgh, dy_seq, dh0, dy0 = cuda_gru_ar_bwd(
             w_out.to(wdt), w_hh.to(wdt), w_ih_y.to(wdt), b_hh, d_trj, gates_x,
-            y_prev, h_prev, out_mask, d_hT, d_yT)
+            y_prev, h_prev, out_mask, d_hT, d_yT, gates)
 
         def cast(g, like):  # as the JAX _bwd: to the (weight) dtype, then back
             return g.to(wdt).to(like.dtype)
