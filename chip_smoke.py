@@ -5,7 +5,7 @@
 
 Phases, one line or more each; any failure exits non-zero:
   1. build    every CUDA kernel of the port from ``cyclevae_tpu_torch/csrc``
-              (``gru_ar.cu``, ``gru_ar_bwd.cu``, ``wavernn.cu``; one nvcc per
+              (``gru_ar.cu``, ``gru_ar_bwd.cu``, ``wavernn.cu``, ``pwg.cu``; one nvcc per
               source, all started together) and, beside them, the host DSP
               library from ``cyclevae_tpu_torch/dsp/native`` (``make``);
   2. kernels  each kernel against its plain PyTorch version on the card,
@@ -32,7 +32,13 @@ Phases, one line or more each; any failure exits non-zero:
               categorical distribution they follow; beside it K4's dual
               instantiation (the published WaveRNN-896's coarse and fine
               softmax over 16-bit audio, 448 + 448 units) at the same T, B,
-              greedy and sampled, held the same way, one launch a call;
+              greedy and sampled, held the same way, one launch a call; and
+              Parallel WaveGAN's gated residual layer kernel (``pwg.cu``, the
+              published widths: R = S = 64, G = 128, 54 aux channels) at n =
+              130 and 390 frames of 256 samples, dilations 1, 16 and 512,
+              against its plain version, then 390 frames rendered by the
+              whole generator through ``synthesize_vocoder`` (30 launches)
+              against the plain reference ``benchmark/reference/pwg.py``;
   3. main     the stage-6 conversion path of the flagship hu1024 CycleVAE
               (random weights from a seed, stats baked in): 4 requests
               through ``Codec`` + ``device_decode_pair`` per dtype, with the
@@ -213,6 +219,19 @@ VOC_TEMPERATURE = 0.8               # the recipe's vocoder_temperature
 VOC_DIST_ROWS, VOC_DIST_T = 4, 50_000   # 200,000 draws for the distribution check
 SAMPLE_RATE = 22050                 # 5 ms frames at hop 110.25
 SHIFT_MS = 5.0
+# Parallel WaveGAN (v1, PWGConfig defaults: 30 layers, 64 / 128 / 64
+# channels, 54 aux, hop 256): the layer kernel at the shortest and longest
+# utterance of voc-vocode-pwg (frames of 256 samples), three dilations of a
+# stack (its first, a middle and its last layer), 20 timed launches each
+PWG_FRAMES = (130, 390)
+PWG_DILATIONS = (1, 16, 512)
+PWG_ITERS = 20
+#   the kernel sums each product (256 and 64 terms) in order with FMA, the
+#   plain version through cuBLAS in another order: a few ulps of the larger
+#   partial sums, ~1e-6 of a layer's largest output; 30 layers carry them on
+#   (tests/test_torch_cuda_pwg.py holds the same bounds)
+PWG_LAYER_TOL = 1e-5
+PWG_WAVE_TOL = 2e-5
 MCEP_ALPHA, IRLEN = 0.455, 1024     # FeatureConfig defaults: mod_pow's warping, IR length
 # wav-to-wav conversion: speech-like wavs of a source (~120 Hz) and a target
 # (~220 Hz) speaker at the shortest and longest request lengths, each pair
@@ -524,6 +543,19 @@ def wavernn_dual_bound_ms(B: int, T: int, cfg):
     return elementwise_bound_ms(ops, nbytes, torch.float32)
 
 
+def pwg_layer_bound_ms(n: int, cfg, first: bool = False):
+    """The PWG layer kernel: operations and bytes as
+    ``benchmark/work/pwg.py`` counts one layer over n samples: the (kR + A) x
+    G and G/2 x (R + S) products; x read and written, c read, skip written
+    and (past the first layer) read, each once, the weights once."""
+    k, R, G, S, A = (cfg.kernel_size, cfg.residual_channels, cfg.gate_channels,
+                     cfg.skip_channels, cfg.aux_channels)
+    ops = 2 * n * ((k * R + A) * G + (G // 2) * (R + S))
+    weights = (k * R + A) * G + G + (G // 2) * (R + S) + R + S
+    nbytes = 4 * (n * (2 * R + A + S + (0 if first else S)) + weights)
+    return elementwise_bound_ms(ops, nbytes, torch.float32)
+
+
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
@@ -532,7 +564,7 @@ def phase_build():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:     # the host DSP library beside nvcc
         dsp = pool.submit(dsp_lib.get_lib)
-        paths = _build.build(["gru_ar", "gru_ar_bwd", "wavernn"])
+        paths = _build.build(["gru_ar", "gru_ar_bwd", "wavernn", "pwg"])
         dsp.result()
     log(f"[build] {len(paths)} kernel source(s) and the host DSP library ({dsp_lib._LIB_PATH}) "
         f"in {time.perf_counter() - t0:.1f} s")
@@ -893,6 +925,95 @@ def phase_vocoder_dual_kernel(dev):
                 f"plain={plain_ms:.1f} ms bound={bound_ms:.4f} ms ({bound_by}) "
                 f"{'ok' if match else 'FAIL'}")
     return results, ok
+
+
+def phase_pwg(dev):
+    """Parallel WaveGAN's layer kernel against its plain version at the
+    published widths (n = 130 and 390 frames of 256 samples, dilations 1,
+    16 and 512, the first layer's skip written and a later one's
+    accumulated), with its time, the plain version's and the bound; then the
+    main path: ``synthesize_vocoder`` renders 390 frames of features with
+    the generator (30 launches), held against the plain reference
+    (``benchmark/reference/pwg.py``) on the same noise, and timed."""
+    from benchmark.drivers.vocode_pwg import pwg_weights
+    from benchmark.reference import pwg as ref
+    from cyclevae_tpu_torch.models.pwg import PWGConfig, pack_layers
+    from cyclevae_tpu_torch.ops.cuda_pwg import cuda_pwg_layer, pwg_layer_reference
+    from cyclevae_tpu_torch.pipeline.vocoder_stage import synthesize_vocoder
+
+    cfg = PWGConfig()
+    v = dataclasses.asdict(cfg)
+    R, S, A = cfg.residual_channels, cfg.skip_channels, cfg.aux_channels
+    p = pwg_weights(torch.Generator(device=dev).manual_seed(SEED + 50), v)
+    w1, b1, w2, b2 = pack_layers(p, cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    gap = lambda got, want: float((got - want).abs().max() / want.abs().max())
+    results, ok = {}, True
+    for frames in PWG_FRAMES:
+        n = frames * cfg.hop
+        x = torch.randn((1, R, n), generator=gen, device=dev)
+        c = torch.randn((1, A, n), generator=gen, device=dev)
+        skip = torch.randn((1, S, n), generator=gen, device=dev)
+        for d in PWG_DILATIONS:
+            l = next(i for i in range(cfg.layers) if cfg.dilation(i) == d)
+            for first in ((True, False) if d == 1 else (False,)):
+                s_in = None if first else skip
+                args = lambda: (x, c, None if first else skip.clone(), w1[l], b1[l], w2[l],
+                                b2[l], d)
+                before = cuda_pwg_layer.launches
+                got = cuda_pwg_layer(*args())
+                launches = cuda_pwg_layer.launches - before
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                want = pwg_layer_reference(x, c, s_in, w1[l], b1[l], w2[l], b2[l], d)
+                end.record()
+                torch.cuda.synchronize()
+                plain_ms = start.elapsed_time(end)
+                err = max(gap(got[0], want[0]), gap(got[1], want[1]))
+                timed = args()
+                ms = cuda_ms(lambda: cuda_pwg_layer(*timed), iters=PWG_ITERS)
+                bound_ms, bound_by = pwg_layer_bound_ms(n, cfg, first)
+                row_ok = err <= PWG_LAYER_TOL and launches == 1
+                ok &= row_ok
+                key = f"n{n}/d{d}/{'first' if first else 'accumulate'}"
+                results[key] = dict(n=n, dilation=d, first=first, max_abs_err=err, ms=ms,
+                                    us_per_ksample=ms * 1e6 / n, plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by,
+                                    roofline_pct=100 * bound_ms / ms,
+                                    launches_per_call=launches, ok=row_ok)
+                log(f"[kernels] pwg_layer {key} ({frames} frames) R={R} G={cfg.gate_channels} "
+                    f"S={S} A={A}: {launches} launch; max gap {err:.3e} of the largest output "
+                    f"(<= {PWG_LAYER_TOL}) kernel={ms:.4f} ms plain={plain_ms:.3f} ms "
+                    f"bound={bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}%) "
+                    f"{'ok' if row_ok else 'FAIL'}")
+
+    # the main path, against the reference on the same noise
+    frames = PWG_FRAMES[-1]
+    feats = torch.randn((frames, A), generator=gen, device=dev)
+    seed = SEED + 52
+    before = cuda_pwg_layer.launches
+    wave = synthesize_vocoder(p, cfg, feats.cpu().numpy(), seed=seed, device=dev)
+    launches = cuda_pwg_layer.launches - before
+    z = torch.randn((1, frames * cfg.hop), generator=torch.Generator(device=dev).manual_seed(seed),
+                    device=dev)[0]
+    want = ref.generate(p, v, feats, z)
+    err = gap(torch.as_tensor(wave, device=dev), want)
+    tf32 = gap(ref.generate(p, v, feats, z, precision_name="tf32"), want)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        synthesize_vocoder(p, cfg, feats.cpu().numpy(), seed=seed, device=dev)
+    render_ms = (time.perf_counter() - t0) / 5 * 1e3
+    main_ok = launches == cfg.layers and err <= PWG_WAVE_TOL < tf32
+    ok &= main_ok
+    results["synthesize"] = dict(frames=frames, samples=frames * cfg.hop, launches=launches,
+                                 max_abs_err=err, tf32_gap=tf32, render_ms=render_ms, ok=main_ok)
+    log(f"[vocode] pwg synthesize_vocoder {frames} frames ({frames * cfg.hop} samples): "
+        f"{launches} layer launches; gap {err:.3e} from the reference (<= {PWG_WAVE_TOL}; the "
+        f"reference in TF32 {tf32:.3e}); {render_ms:.2f} ms a rendering (host clock) "
+        f"{'ok' if main_ok else 'FAIL'}")
+    return results, ok, launches
 
 
 def synth_features(rng: np.random.Generator, T: int, in_dim: int = 54) -> np.ndarray:
@@ -2731,6 +2852,7 @@ def main() -> int:
     train_kern = phase_train_kernels(dev)
     voc_kern, voc_kern_ok = phase_vocoder_kernel(dev)
     dual_kern, dual_kern_ok = phase_vocoder_dual_kernel(dev)
+    pwg_kern, pwg_ok, pwg_launches = phase_pwg(dev)
     main_ok, launches = phase_main(dev)
     train_ok, (k2_launches, k3_launches) = phase_train(dev)
     vocode_ok, k4_launches, k4_dual_launches = phase_vocode(dev)
@@ -2749,7 +2871,7 @@ def main() -> int:
                     + tool_launches["K3"] + scaling_launches.get("K3", 0))
     k4_launches += recipe_launches["K4"] + tool_launches["K4"]
     ok = (main_ok and train_ok and vocode_ok and wav_ok and recipe_ok and infer_ok and variants_ok
-          and tools_ok and parallel_ok and voc_kern_ok and dual_kern_ok
+          and tools_ok and parallel_ok and voc_kern_ok and dual_kern_ok and pwg_ok
           and all(r["ok"] for r in kern.values())
           and all(r["ok"] for r in train_kern.values()))
 
@@ -2779,6 +2901,10 @@ def main() -> int:
         # WaveRNN through synthesize_vocoder (phase_vocode)
         entry("wavernn_generate_dual", "cyclevae_tpu_torch/csrc/wavernn.cu", None,
               k4_dual_launches, dual_kern[f"B1/sampled{VOC_TEMPERATURE}"]),
+        # the main path: 390 frames rendered by PWG through synthesize_vocoder
+        # (phase_pwg); the row of a later layer at the cell's longest utterance
+        entry("pwg_layer", "cyclevae_tpu_torch/csrc/pwg.cu", None, pwg_launches,
+              pwg_kern[f"n{PWG_FRAMES[-1] * 256}/d16/accumulate"]),
     ]}), flush=True)
     if not ok:
         print("chip_smoke: a phase failed", file=sys.stderr)

@@ -137,6 +137,14 @@ class Draws:
         return torch.rand(shape, generator=g, device=g.device) * 0.9999 - 0.4999
 
 
+def compose_conv(params: Dict, cfg: GRURNNConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The net's dilated conv stack composed into one window product
+    (``dilconv_effective`` at the compute dtype): what ``gru_rnn_apply``
+    applies, and takes as ``conv`` where the params are frozen."""
+    cdt = _DTYPES[cfg.compute_dtype]
+    return dilconv_effective(tree_map(lambda a: a.to(cdt), params["conv"]), cfg.kernel_size)
+
+
 def gru_rnn_apply(
     params: Dict,
     cfg: GRURNNConfig,
@@ -158,6 +166,7 @@ def gru_rnn_apply(
     noise: float = 0.0,
     differentiable: bool = False,
     draws: Optional[Draws] = None,
+    conv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Forward over a (B, T, in_dim) segment.
 
@@ -187,6 +196,9 @@ def gru_rnn_apply(
     Aux surface: ``res`` (residual AR mode), ``softmax`` / ``sigmoid`` /
     ``exp`` output heads (the AR feedback stays pre-head), ``relu_vae``
     (variance lanes relu'd and clamped at 1e-6).
+
+    ``conv``: ``compose_conv(params, cfg)`` made once, for frozen params
+    (the ``Codec``); else the stack is composed here, ~60 small operations.
     """
     f32 = torch.float32
     B, T, _ = x.shape
@@ -203,8 +215,7 @@ def gru_rnn_apply(
     rounded = lambda t: tree_map(lambda a: a.to(cdt).to(f32), t)
 
     # context embedding: one window matmul (see layers.dilconv_apply)
-    conv_p = tree_map(lambda a: a.to(cdt), params["conv"])
-    w_eff, b_eff = dilconv_effective(conv_p, cfg.kernel_size)
+    w_eff, b_eff = compose_conv(params, cfg) if conv is None else conv
     conv_seq = (window_gather(x.to(cdt).to(f32), cfg.rec_field) @ w_eff.to(f32)
                 + b_eff.to(f32))  # (B, T, conv_dim)
 

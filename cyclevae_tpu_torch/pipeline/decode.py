@@ -34,8 +34,9 @@ import torch
 
 from ..dsp import dtw as dtw_c
 from ..dsp import sptk, world
-from ..models.gru_vae import (gru_rnn_apply, sampling_vae_batch,
+from ..models.gru_vae import (compose_conv, gru_rnn_apply, sampling_vae_batch,
                               sampling_vae_laplace_batch)
+from ..ops import _build, cuda_gru
 from ..utils.config import ExperimentConfig
 from ..utils.device import resolve_device
 from ..utils.profiling import fetch, span
@@ -62,6 +63,15 @@ def _feat_from_wav(x, fs, minf0, maxf0, pow_threshold, cfg_feat):
         "time_axis": time_axis, "f0": f0, "sp": sp, "ap": ap, "mcep": mcep,
         "npow": npow, "spcidx": spcidx[0], "feat": feat.astype(np.float32),
     }
+
+
+def _thread_pool_set() -> None:
+    """Give the calling thread the intra-op thread count of
+    ``torch.set_num_threads`` before its first matrix product on the CPU.
+    ATen sets it lazily, at the thread's first parallel loop; a BLAS product
+    before that runs at OpenMP's default count and sums in another order,
+    so a decode on a worker thread would differ from a serial one."""
+    torch.get_num_threads()
 
 
 class Codec:
@@ -93,6 +103,13 @@ class Codec:
                           else {"clamp_vae": True})
         self._sample = (sampling_vae_laplace_batch if laplace
                         else sampling_vae_batch)
+        # the frozen conv stacks, composed once and not on every call
+        with torch.inference_mode():
+            self._enc_conv = compose_conv(self.params.encoder, cfg.enc_cfg)
+            self._dec_conv = compose_conv(self.params.decoder, cfg.dec_cfg)
+        # device_decode_pair(..., on_device=True)'s device phases, one a
+        # padded length (captured as CUDA graphs on a CUDA codec)
+        self._pair_phases: Dict[int, _PairPhase] = {}
 
     # ---- device work: plain functions on tensors ----
 
@@ -102,10 +119,12 @@ class Codec:
     def _encode_b(self, feats: torch.Tensor) -> torch.Tensor:
         # feats (B, Tp, in) -> posterior params (B, Tp, 2*lat)
         cfg = self.cfg
+        _thread_pool_set()
         lat, _, _ = gru_rnn_apply(
             self.params.encoder, cfg.enc_cfg, feats,
             torch.zeros((feats.shape[0], cfg.lat_dim * 2), device=self.device),
-            lat_dim=cfg.lat_dim, use_pallas=cfg.use_pallas, **self._clamp_kw)
+            lat_dim=cfg.lat_dim, use_pallas=cfg.use_pallas, conv=self._enc_conv,
+            **self._clamp_kw)
         return lat
 
     def _latent_mean(self, generator, lat: torch.Tensor,
@@ -117,13 +136,21 @@ class Codec:
             generator=generator, eps=eps)
         return draws.mean(dim=0)
 
+    def _draw(self, generator: torch.Generator, out: torch.Tensor) -> torch.Tensor:
+        """The posterior sampler's noise into ``out``, the values
+        ``_latent_mean`` draws from ``generator`` at that shape."""
+        if self.cfg.posterior == "laplace":
+            return torch.rand(out.shape, generator=generator, out=out).mul_(0.9999).sub_(0.4999)
+        return torch.randn(out.shape, generator=generator, out=out)
+
     def _decode_b(self, code_z: torch.Tensor) -> torch.Tensor:
         # code_z (B, Tp, n_spk + lat) -> (B, Tp, out); decoder feedback
         # starts at the normalized zero mcep, (0 - mean) / scale
         s = self.params.decoder["scale_out"]
+        _thread_pool_set()
         y0 = ((0.0 - s["mean"]) / s["scale"]).expand(code_z.shape[0], self.cfg.out_dim)
         out, _, _ = gru_rnn_apply(self.params.decoder, self.cfg.dec_cfg, code_z,
-                                  y0, use_pallas=self.cfg.use_pallas)
+                                  y0, use_pallas=self.cfg.use_pallas, conv=self._dec_conv)
         return out
 
     def _eps(self, eps, lens: Sequence[int], Tp: int) -> Optional[torch.Tensor]:
@@ -200,6 +227,32 @@ class Codec:
                         [z[i, :n] for i, n in enumerate(lens)])
 
     @torch.inference_mode()
+    def convert_pair(self, generator: Optional[torch.Generator], src_feat: np.ndarray,
+                     trg_feat: np.ndarray, eps=None) -> Tuple[torch.Tensor, ...]:
+        """``device_decode_pair``'s device phase with its outputs left on the
+        device: (lat_src, lat_trg, cvmcep, cvmcep_src, cvmcep_trg), float32
+        tensors, the values of ``encode_mean`` then ``decode_batch``, with
+        no wait on the device.  On a CUDA codec the phase of each padded
+        length is captured as a CUDA graph at its first request, and the
+        host then queues three copies, the draws and one replay, where the
+        two calls queue ~250 operations and wait twice."""
+        cfg = self.cfg
+        with span("codec.convert_pair"):
+            with span("codec.pack"):
+                stack, lens = self._pad_stack([np.asarray(f, np.float32)
+                                               for f in (src_feat, trg_feat)])
+                (T, Tt), Tp = lens, stack.shape[1]
+                codes = np.zeros((3, Tp, cfg.n_spk), np.float32)
+                for i, (n, idx) in enumerate(((T, 1), (T, 0), (Tt, 1))):
+                    codes[i, :n] = _speaker_codes(n, cfg.n_spk, idx)
+                eps = self._eps(eps, lens, Tp)
+            phase = self._pair_phases.get(Tp)
+            if phase is None:
+                phase = self._pair_phases[Tp] = _PairPhase(self, Tp)
+            lat, out = phase.run(self, generator, stack, codes, eps)
+        return lat[0, :T], lat[1, :Tt], out[0, :T], out[1, :T], out[2, :Tt]
+
+    @torch.inference_mode()
     def decode_batch(self, pairs: List[Tuple[np.ndarray, np.ndarray]]
                      ) -> List[np.ndarray]:
         """Batched decode of K (code, z) pairs in ONE device call (the
@@ -215,6 +268,66 @@ class Codec:
             with span("codec.unpack"):
                 out = out.numpy().astype(np.float64)
                 return [out[i, :n] for i, n in enumerate(lens)]
+
+
+class _PairPhase:
+    """``Codec.convert_pair``'s device phase at one padded length Tp: the
+    batched encode of the two utterances (K1), the posterior mean of the
+    draws, the batched decode of the three directions (K1), from buffers
+    that each request writes: the padded features, the draws and the
+    speaker codes, zero past each direction's length, where the decode
+    input's latents are zeroed too, as ``decode_batch`` pads them.  On a
+    CUDA codec the phase is captured as one CUDA graph and replayed on the
+    current stream, the buffers written there first and the outputs copied
+    out after (the next replay writes over the graph's), its K1 launches
+    counted at each replay; on the CPU it runs directly."""
+
+    def __init__(self, codec: "Codec", Tp: int):
+        cfg, dev = codec.cfg, codec.device
+        self.x = torch.zeros((2, Tp, cfg.in_dim), device=dev)
+        self.eps = torch.zeros((codec.n_smpl_dec, 2, Tp, cfg.lat_dim), device=dev)
+        self.code = torch.zeros((3, Tp, cfg.n_spk), device=dev)
+        self.graph = None
+        if dev.type != "cuda":
+            return
+        # one run off the capture first, as CUDA graphs ask (the libraries'
+        # handles and workspaces, the kernels' plans); its launches ran
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._body(codec)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = cuda_gru.cuda_gru_ar.launches
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.lat, self.out = self._body(codec)
+        self.launches = cuda_gru.cuda_gru_ar.launches - before
+        cuda_gru.cuda_gru_ar.launches = before
+
+    def _body(self, codec: "Codec") -> Tuple[torch.Tensor, torch.Tensor]:
+        lat = codec._encode_b(self.x)
+        z = codec._latent_mean(None, lat, self.eps)
+        z = torch.where((self.code != 0).any(-1, keepdim=True),
+                        torch.stack([z[0], z[0], z[1]]), 0.0)
+        return lat, codec._decode_b(torch.cat([self.code, z], dim=-1))
+
+    def run(self, codec: "Codec", generator: Optional[torch.Generator], stack: np.ndarray,
+            codes: np.ndarray, eps: Optional[torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The phase on one request's inputs, queued without a wait: the
+        host arrays' copies are staged before ``copy_`` returns."""
+        self.x.copy_(torch.from_numpy(stack), non_blocking=True)
+        self.code.copy_(torch.from_numpy(codes), non_blocking=True)
+        if eps is None:
+            codec._draw(generator, self.eps)
+        else:
+            self.eps.copy_(eps)
+        if self.graph is None:
+            return self._body(codec)
+        self.graph.replay()
+        for _ in range(self.launches):
+            _build.count_launch(cuda_gru.cuda_gru_ar)
+        return self.lat.clone(), self.out.clone()
 
 
 def _speaker_codes(T: int, n_spk: int, idx: int) -> np.ndarray:
@@ -246,8 +359,16 @@ def decode_interpolated(codec: Codec, generator: Optional[torch.Generator],
 def gv_postfilter(cvmcep: np.ndarray, gv_mean_data: np.ndarray,
                   cvgv_mean_model: np.ndarray) -> np.ndarray:
     """Scale mcep deviations by sqrt(gv_data/gv_model), keep c0
-    (decode…py:418-421)."""
+    (decode…py:418-421).  A tensor (``device_decode_pair(...,
+    on_device=True)``'s) is filtered where it is, in float64, without a
+    wait on its device."""
     with span("vocoder.postfilter"):
+        if isinstance(cvmcep, torch.Tensor):
+            cv = cvmcep.double()
+            ratio = torch.from_numpy(np.sqrt(gv_mean_data / cvgv_mean_model)).to(
+                cv.device, non_blocking=True)
+            datamean = cv[:, 1:].mean(dim=0)
+            return torch.cat([cv[:, :1], ratio * (cv[:, 1:] - datamean) + datamean], dim=1)
         datamean = np.mean(cvmcep[:, 1:], axis=0)
         return np.c_[cvmcep[:, 0],
                      np.sqrt(gv_mean_data / cvgv_mean_model)
@@ -285,17 +406,29 @@ def analyze_pair(exp: ExperimentConfig, wav_file: str, wav_trg_file: str,
 
 
 def device_decode_pair(codec: Codec, generator: Optional[torch.Generator],
-                       src_feat: np.ndarray, trg_feat: np.ndarray, eps=None):
+                       src_feat: np.ndarray, trg_feat: np.ndarray, eps=None,
+                       on_device: bool = False):
     """Device phase of one conversion request: ONE fused batched
     encode+posterior-mean call for both utterances and ONE fused
     3-direction batched decode, under the codec's lock.  ``generator``
     defaults to one seeded with 0 on the codec's device; ``eps``
     (n_smpl_dec, 2, max(T_src, T_trg), lat) replaces its draws.  Returns
-    (lat_src, lat_trg, cvmcep, cvmcep_src, cvmcep_trg)."""
+    (lat_src, lat_trg, cvmcep, cvmcep_src, cvmcep_trg).
+
+    ``on_device``: the five are float32 tensors left on the codec's device,
+    the same values, and the call never waits on the device: the latents
+    stay there between the encode and the decode, so the host can queue
+    what follows (``gv_postfilter``, ``converted_conditioning`` and a
+    Parallel WaveGAN rendering take them there) while K1 runs; on a CUDA
+    codec the device phase is one CUDA graph replay (``Codec.convert_pair``).
+    The request then does not end in a copy to the host: callers on several
+    threads order their streams themselves."""
     cfg = codec.cfg
     if generator is None and eps is None:
         generator = torch.Generator(device=codec.device).manual_seed(0)
     with span("decode.device_decode_pair"), codec.lock:
+        if on_device:
+            return codec.convert_pair(generator, src_feat, trg_feat, eps)
         (lat_src, lat_trg), (z_src, z_trg) = codec.encode_mean(
             generator, [src_feat, trg_feat], eps)
         T, Tt = len(z_src), len(z_trg)

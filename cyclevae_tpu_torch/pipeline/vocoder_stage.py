@@ -4,8 +4,9 @@ PyTorch counterpart of ``cyclevae_tpu/pipeline/vocoder_stage.py``:
 teacher-forced training over wav/feature pairs of the feature store
 (``sample_clips``, ``run_train_vocoder``: a cuDNN GRU on the card),
 checkpointing and resume, AR synthesis (``synthesize_vocoder``: the CUDA
-kernel K4 on the card; mu-law, or 16-bit from the dual output), the conditioning of a converted utterance
-(``converted_conditioning``) and copy-synthesis scoring
+kernel K4 on the card; mu-law, or 16-bit from the dual output), or Parallel
+WaveGAN's generator (its layer kernel on the card), the conditioning of a
+converted utterance (``converted_conditioning``) and copy-synthesis scoring
 (``eval_copy_synthesis``: WORLD re-analysis and DTW MCD on the host).
 """
 
@@ -16,12 +17,14 @@ import logging
 import math
 import os
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..dsp import dtw as dtw_c
+from ..models import pwg
+from ..models.pwg import PWGConfig
 from ..models.wavernn import (
     WaveRNNConfig,
     full_f32_cudnn,
@@ -178,7 +181,7 @@ def _leaves(tree):
 
 
 @torch.inference_mode()
-def synthesize_vocoder(params: Dict, cfg: WaveRNNConfig, feats: np.ndarray,
+def synthesize_vocoder(params: Dict, cfg: Union[WaveRNNConfig, PWGConfig], feats: np.ndarray,
                        seed: int = 0, temperature: float = 1.0,
                        use_pallas: bool = True, spk_id: Optional[int] = None,
                        device=None) -> np.ndarray:
@@ -191,8 +194,17 @@ def synthesize_vocoder(params: Dict, cfg: WaveRNNConfig, feats: np.ndarray,
     with the kernel's Philox uniforms on the CPU), else with the plain
     ``generate_reference`` and a ``torch.Generator`` seeded with ``seed``.
     The samples are decoded by the model's output layer: mu-law indices, or
-    the dual output's 16-bit samples (``cfg.dual``)."""
+    the dual output's 16-bit samples (``cfg.dual``).
+
+    A ``PWGConfig`` renders with Parallel WaveGAN's generator instead
+    (``_synthesize_pwg``): F * hop samples, not clipped; its layers run the
+    layer kernel on a CUDA device, whatever ``use_pallas`` says.  It also
+    takes ``feats`` as a tensor already on the device (as
+    ``converted_conditioning`` leaves a device conversion's), and then waits
+    on the device only for the waveform's fetch."""
     device = resolve_device(device)
+    if isinstance(cfg, PWGConfig):
+        return _synthesize_pwg(params, cfg, feats, seed, temperature, spk_id, device)
     feats = np.asarray(feats, np.float32)
     if cfg.n_spk > 0:
         if spk_id is None:
@@ -217,6 +229,38 @@ def synthesize_vocoder(params: Dict, cfg: WaveRNNConfig, feats: np.ndarray,
         return fetch(wave).numpy()
 
 
+def _synthesize_pwg(params: Dict, cfg: PWGConfig, feats: np.ndarray, seed: int,
+                    temperature: float, spk_id: Optional[int],
+                    device: torch.device) -> np.ndarray:
+    """``synthesize_vocoder`` for Parallel WaveGAN: features (F, aux_channels)
+    -> F * hop samples.  The upsampling network under ``vocoder.upsample``;
+    the noise z ~ N(0, 1) of (1, F * hop) from a ``torch.Generator`` on the
+    device seeded with ``seed``, the first convolution, the residual layers
+    (the layer kernel on the card) and the last convolutions under
+    ``vocoder.generate``; the fetch under ``vocoder.assemble``.  No
+    temperature applies: anything but 1.0 is refused, as is a speaker code."""
+    if temperature != 1.0:
+        raise ValueError(f"Parallel WaveGAN draws no samples: temperature {temperature} "
+                         "does not apply (pass 1.0)")
+    if spk_id is not None:
+        raise ValueError("the Parallel WaveGAN generator takes no speaker code")
+    if not isinstance(feats, torch.Tensor):
+        feats = np.asarray(feats, np.float32)
+    if feats.ndim != 2 or feats.shape[1] != cfg.aux_channels:
+        raise ValueError(f"features {tuple(feats.shape)} are not (F, {cfg.aux_channels})")
+    with span("vocoder.synthesize"):
+        params = tree_map(lambda t: t.to(device), params)
+        with span("vocoder.upsample"):
+            c = torch.as_tensor(feats, dtype=torch.float32, device=device)
+            c = pwg.upsample(params, cfg, c.t()[None])
+        with span("vocoder.generate"):
+            g = torch.Generator(device=device).manual_seed(seed)
+            z = torch.randn((1, c.shape[2]), generator=g, device=device)
+            wave = pwg.pwg_generate(params, cfg, c, z)[0]
+        with span("vocoder.assemble"):
+            return fetch(wave).numpy()
+
+
 def converted_conditioning(src_feat: np.ndarray, cvmcep: np.ndarray,
                            cvf0: np.ndarray, shiftms: float) -> np.ndarray:
     """Assemble neural-vocoder conditioning for a CONVERTED utterance in the
@@ -227,6 +271,10 @@ def converted_conditioning(src_feat: np.ndarray, cvmcep: np.ndarray,
     src_feat: (T, feat_dim) natural source features (layout above).
     cvmcep:   (T, mcep_dim+1) converted (typically GV-postfiltered) mceps.
     cvf0:     (T,) converted F0 in Hz (0 = unvoiced).
+
+    A ``cvmcep`` tensor (a device conversion's) gives a float32 tensor on
+    its device, the same values, without a wait on the device: the F0 and
+    codeap columns are made on the host and go up beside it.
     """
     with span("vocoder.conditioning"):
         uv, contf0 = convert_continuos_f0(np.array(cvf0))
@@ -236,6 +284,11 @@ def converted_conditioning(src_feat: np.ndarray, cvmcep: np.ndarray,
         # (uv = 0 already tells the vocoder these frames are unvoiced)
         cont_lpf = np.maximum(cont_lpf, 1.0)
         n_codeap = src_feat.shape[1] - 2 - cvmcep.shape[1]
+        if isinstance(cvmcep, torch.Tensor):
+            host = np.c_[uv[:, None], np.log(cont_lpf)[:, None],
+                         src_feat[:, 2:2 + n_codeap]].astype(np.float32)
+            host = torch.from_numpy(host).to(cvmcep.device, non_blocking=True)
+            return torch.cat([host, cvmcep.float()], dim=1)
         return np.c_[uv[:, None], np.log(cont_lpf)[:, None],
                      src_feat[:, 2:2 + n_codeap], cvmcep].astype(np.float32)
 

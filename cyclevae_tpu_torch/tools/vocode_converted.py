@@ -4,8 +4,9 @@ Port of the JAX package's ``tools/vocode_converted.py``: takes stage 6's
 converted features (posterior-mean encode and target-code decode through
 ``device_decode_pair``, K1 twice a pair; ``mod_pow``, the GV postfilter,
 ``mod_pow`` again; the log-Gaussian F0 transform), renders them with the
-trained WaveRNN (``synthesize_vocoder``, K4 once a pair) and with WORLD's
-``_GV`` path, and re-analyses both renderings:
+trained WaveRNN (``synthesize_vocoder``, K4 once a pair; or with
+``--vocoder pwg`` a Parallel WaveGAN generator, its layer kernel 30 times a
+pair) and with WORLD's ``_GV`` path, and re-analyses both renderings:
 
   mcd_cv_voc    DTW MCD of the re-analysed NEURAL-vocoded conversion vs the
                 natural target utterance
@@ -23,6 +24,13 @@ cannot match JAX's).
     python -m cyclevae_tpu_torch.tools.vocode_converted --work W --wav-root R \\
         --config exp.json --vocoder-exp W/exp/vocoder_<spk>_hu896 [--device cpu]
 
+With ``--vocoder pwg``, ``--vocoder-exp`` is a checkpoint of
+kan-bayashi/ParallelWaveGAN (its ``["model"]["generator"]``, or a plain
+generator state dict; a directory: its newest ``checkpoint-*.pkl``), weight
+norm folded at load (``models.pwg.from_state_dict``); its hop (v1's 256)
+must be the recipe's frame shift in samples (11.61 ms at 22.05 kHz), as PWG
+upsamples by an integer factor only.
+
 Writes ``--out`` (default ``<expdir>/vocode_converted_ep<N>.json``).
 """
 
@@ -38,7 +46,39 @@ import torch
 
 from ._common import add_device_arg, device_entry, kernel_launches, launches_since
 from ._common import resolve_device, write_json
+from ..ops.cuda_pwg import cuda_pwg_layer
 from ..pipeline.decode import device_decode_pair
+
+
+def load_vocoder(args, fcfg, dev):
+    """(params, config) of the vocoder ``args`` name: the WaveRNN from either
+    package's checkpoint, or a Parallel WaveGAN generator (v1's widths) from
+    a ParallelWaveGAN checkpoint, its hop checked against the frame shift."""
+    from ..interop import wavernn_params_from_jax
+    from ..models.pwg import PWGConfig, from_state_dict
+    from ..models.wavernn import WaveRNNConfig
+    from ..vi.checkpoint import latest_checkpoint, load_checkpoint
+
+    if args.vocoder == "wavernn":
+        vcfg = WaveRNNConfig(hidden_units=args.hidden_units, n_spk=args.n_spk, dual=args.dual)
+        return wavernn_params_from_jax(
+            load_checkpoint(latest_checkpoint(args.vocoder_exp))["params"], device=dev), vcfg
+    vcfg = PWGConfig(fs=fcfg.fs)
+    if abs(fcfg.fs * fcfg.shiftms / 1000.0 - vcfg.hop) > 1e-6:
+        raise ValueError(f"the PWG generator's hop ({vcfg.hop} samples) is not the frame shift "
+                         f"({fcfg.shiftms} ms at {fcfg.fs} Hz): PWG upsamples by an integer "
+                         "factor only")
+    path = args.vocoder_exp
+    if os.path.isdir(path):
+        found = sorted(f for f in os.listdir(path)
+                       if f.startswith("checkpoint-") and f.endswith(".pkl"))
+        if not found:
+            raise FileNotFoundError(f"no checkpoint-*.pkl in {path}")
+        path = os.path.join(path, max(found, key=lambda f: os.path.getmtime(
+            os.path.join(path, f))))
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = sd.get("model", {}).get("generator", sd)
+    return from_state_dict(sd, vcfg, device=dev), vcfg
 
 
 def main(argv=None) -> dict:
@@ -61,6 +101,8 @@ def main(argv=None) -> dict:
                         "[spk_src, spk_trg]; conversion targets spk_trg = 1)")
     p.add_argument("--dual", action="store_true",
                    help="the vocoder has the dual coarse/fine 16-bit output")
+    p.add_argument("--vocoder", choices=("wavernn", "pwg"), default="wavernn",
+                   help="the neural vocoder: the WaveRNN, or a Parallel WaveGAN generator")
     p.add_argument("--out", default=None)
     add_device_arg(p)
     args = p.parse_args(argv)
@@ -73,8 +115,6 @@ def main(argv=None) -> dict:
 
     from ..dsp import dtw as dtw_c
     from ..dsp import sptk, world
-    from ..interop import wavernn_params_from_jax
-    from ..models.wavernn import WaveRNNConfig
     from ..pipeline.decode import Codec, _feat_from_wav, analyze_pair, gv_postfilter
     from ..pipeline.features import convert_f0, mod_pow
     from ..pipeline.recipe import RecipePaths, _read_spk_conf
@@ -83,7 +123,7 @@ def main(argv=None) -> dict:
     from ..utils.config import load_config
     from ..utils.store import read_store
     from ..utils.wavio import write_wav
-    from ..vi.checkpoint import latest_checkpoint, load_checkpoint
+    from ..vi.checkpoint import load_checkpoint
     from ..vi.train import CycleVAEParams
 
     exp = load_config(args.config)
@@ -111,17 +151,16 @@ def main(argv=None) -> dict:
     cvgv_mean = read_store(paths.stats(spk_src), f"cvgv_mean_{model_id}")
 
     # --- trained neural vocoder (either package's checkpoint) -------------
-    vcfg = WaveRNNConfig(hidden_units=args.hidden_units, n_spk=args.n_spk, dual=args.dual)
-    vparams = wavernn_params_from_jax(
-        load_checkpoint(latest_checkpoint(args.vocoder_exp))["params"], device=dev)
-
     fcfg = exp.feature
+    vparams, vcfg = load_vocoder(args, fcfg, dev)
+    temperature = 1.0 if args.vocoder == "pwg" else args.temperature
     outdir = os.path.join(expdir, f"wav_cv_vocoded_ep{epoch}")
     os.makedirs(outdir, exist_ok=True)
 
     pairs = list(zip(paths.wavs(spk_src, eval_set=True),
                      paths.wavs(spk_trg, eval_set=True)))[:args.n_eval]
     before = kernel_launches()
+    before_pwg = cuda_pwg_layer.launches
     mets = []
     for i, (ws, wt) in enumerate(pairs):
         ana = analyze_pair(exp, ws, wt, sc_src.minf0, sc_src.maxf0,
@@ -142,7 +181,7 @@ def main(argv=None) -> dict:
         feat_cv = converted_conditioning(src["feat"], cvmcep_gv, cvf0, fcfg.shiftms)
 
         # vocoder samples are [-1, 1]; host IO/analysis are int16-scale
-        y = synthesize_vocoder(vparams, vcfg, feat_cv, seed=i, temperature=args.temperature,
+        y = synthesize_vocoder(vparams, vcfg, feat_cv, seed=i, temperature=temperature,
                                spk_id=args.spk_id if args.n_spk else None,
                                device=dev) * 32768.0
         base = os.path.splitext(os.path.basename(ws))[0]
@@ -175,9 +214,12 @@ def main(argv=None) -> dict:
 
     agg = {k: float(np.mean([m[k] for m in mets])) for k in mets[0]}
     agg.update({f"{k}_std": float(np.std([m[k] for m in mets])) for k in mets[0]})
+    launches = launches_since(before)
+    if args.vocoder == "pwg":
+        launches["PWG"] = cuda_pwg_layer.launches - before_pwg
     summary = {"model": model_id, "vocoder_exp": args.vocoder_exp,
-               "temperature": args.temperature, "n_eval": len(mets), "metrics": agg,
-               "device": device_entry(dev), "launches": launches_since(before)}
+               "temperature": temperature, "n_eval": len(mets), "metrics": agg,
+               "device": device_entry(dev), "launches": launches}
     out_path = args.out or os.path.join(expdir, f"vocode_converted_ep{epoch}.json")
     write_json(out_path, summary, indent=2)
     logging.info("vocode_converted: %s", json.dumps(summary))

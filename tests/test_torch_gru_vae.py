@@ -55,6 +55,23 @@ def test_gru_rnn_apply_matches_jax(net, use_pallas):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=3e-5)
 
 
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("net", ["encoder", "decoder"])
+def test_a_conv_composed_once_gives_the_same_outputs(net, compute_dtype):
+    """``gru_rnn_apply(..., conv=compose_conv(params, cfg))``, as the
+    ``Codec`` calls it with its frozen params, equals the call that
+    composes the conv stack itself, bit for bit."""
+    _, tc, _, tp = _models(compute_dtype)
+    cfg, p = (tc.enc_cfg, tp.encoder) if net == "encoder" else (tc.dec_cfg, tp.decoder)
+    rng = np.random.default_rng(2)
+    x = torch.tensor(rng.normal(size=(B, T, cfg.in_dim)).astype(np.float32))
+    y0 = torch.tensor(rng.normal(size=(B, cfg.out_dim)).astype(np.float32) * 0.3)
+    conv = tv.compose_conv(p, cfg)
+    for g, w in zip(tv.gru_rnn_apply(p, cfg, x, y0, use_pallas=True, conv=conv),
+                    tv.gru_rnn_apply(p, cfg, x, y0, use_pallas=True)):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("head", ["softmax", "sigmoid", "exp", "relu_vae",
                                   "clamp_vae_laplace"])
 def test_heads_match_jax(head):
