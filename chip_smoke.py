@@ -435,6 +435,26 @@ def stop_leftovers() -> list:
     return stopped
 
 
+# the conversion engine's CUDA graph captures in this process
+# (``decode._PairPhase``: one a padded length a codec, at its first
+# request); the run off each capture launches K1 as a request does, so a
+# window that holds captures counts 2 K1 a pair and 2 more a capture
+CAPTURES = [0]
+
+
+def count_captures() -> None:
+    """Counts under ``CAPTURES`` each phase that ``decode._PairPhase``
+    captures as a CUDA graph, from here to the end of the process."""
+    from cyclevae_tpu_torch.pipeline import decode
+    init = decode._PairPhase.__init__
+
+    def counted(self, codec, Tp):
+        init(self, codec, Tp)
+        CAPTURES[0] += self.graph is not None
+
+    decode._PairPhase.__init__ = counted
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1275,8 +1295,10 @@ def phase_vocode(dev):
 
     # ---- the main path: counts set to 0 just before, read just after ----
     cuda_gru_ar.launches = cuda_wavernn_generate.launches = 0
+    captures = CAPTURES[0]
     cvmceps = [device_decode_pair(codec, torch.Generator(device=dev).manual_seed(100 + i),
                                   src, trg)[2] for i, (src, trg) in enumerate(pairs)]
+    captures = CAPTURES[0] - captures
     cvgv = np.mean([np.var(c[:, 1:], axis=0) for c in cvmceps], axis=0)
 
     def postprocess(src, cvmcep):
@@ -1319,9 +1341,11 @@ def phase_vocode(dev):
             f"{sec / (n / SAMPLE_RATE):.4f}; K4 launches {launches} (want 1); "
             f"range [{float(y.min()):.5f}, {float(y.max()):.5f}] {'ok' if good else 'FAIL'}")
     k1, n_dual = cuda_gru_ar.launches, sum(vc.dual for _, _, vc, _, _, _ in jobs)
-    ok &= (k1 == 2 * len(pairs) and k4 == len(jobs) - n_dual and k4_dual == n_dual
+    want_k1 = 2 * (len(pairs) + captures)
+    ok &= (k1 == want_k1 and k4 == len(jobs) - n_dual and k4_dual == n_dual
            and cuda_wavernn_generate.launches == len(jobs))
-    log(f"[vocode] main path: K1 {k1} (want {2 * len(pairs)}), K4 {k4} (want "
+    log(f"[vocode] main path: K1 {k1} (want {want_k1}: 2 a pair, 2 for each of {captures} "
+        f"graph capture(s)), K4 {k4} (want "
         f"{len(jobs) - n_dual}), K4 dual {k4_dual} (want {n_dual}) launches")
 
     # ---- the first T_VOC samples of request 0 against the plain sampler ----
@@ -1622,6 +1646,7 @@ def phase_recipe(dev, tmp: str):
             cuda_gru_ar.launches = cuda_gru_ar_train.launches = cuda_gru_ar_bwd.launches = 0
             cuda_wavernn_generate.launches = 0
             scans[0] = tf_calls["plain"] = tf_calls["cudnn"] = 0
+            captures = CAPTURES[0]
             t0 = time.perf_counter()
             recipe.run_stages(stage, exp, paths, conf_dir=conf, n_jobs=8, device=dev,
                               vocoder_epochs=RECIPE_VOC_EPOCHS,
@@ -1633,14 +1658,16 @@ def phase_recipe(dev, tmp: str):
                                      K2=cuda_gru_ar_train.launches,
                                      K3=cuda_gru_ar_bwd.launches,
                                      K4=cuda_wavernn_generate.launches, scan=scans[0],
-                                     tf_plain=tf_calls["plain"], tf_cudnn=tf_calls["cudnn"])
+                                     tf_plain=tf_calls["plain"], tf_cudnn=tf_calls["cudnn"],
+                                     captures=CAPTURES[0] - captures)
             for k in totals:
                 totals[k] += stage_runs[stage][k]
             log(f"[recipe] stage {stage}: {sec:.2f} s host; launches K1 "
                 f"{cuda_gru_ar.launches}, K2 {cuda_gru_ar_train.launches}, K3 "
                 f"{cuda_gru_ar_bwd.launches}, K4 {cuda_wavernn_generate.launches}; plain "
                 f"scan calls {scans[0]}; teacher-forced WaveRNN calls: cuDNN "
-                f"{tf_calls['cudnn']}, plain loop {tf_calls['plain']}")
+                f"{tf_calls['cudnn']}, plain loop {tf_calls['plain']}; conversion graphs "
+                f"captured {stage_runs[stage]['captures']}")
     finally:
         gru_vae.gru_ar_scan = orig["scan"]
         train_stage.make_train_step = orig["step"]
@@ -1765,6 +1792,7 @@ def phase_recipe(dev, tmp: str):
     # 4 AR-GRU calls per cycle: K2 and K3 per valid segment of a train
     # step, K1 per eval batch (one source and one target batch an epoch);
     # stage 5: 2 K1 launches per training utterance; stage 6: 2 per pair;
+    # any stage 2 more for each conversion graph it captures (CAPTURES);
     # stage i per utterance 1 + L x HMC steps K2 and as many K3 (the start's
     # evaluation, then one a leapfrog), and one K1 for the posterior
     # predictive; stage v one K4 per eval utterance,
@@ -1778,6 +1806,8 @@ def phase_recipe(dev, tmp: str):
     hmc_evals = n_post * (1 + hmc_steps * hmc_cfg.n_leapfrog)
     want["i"].update(K1=n_post, K2=hmc_evals, K3=hmc_evals)
     want["v"].update(K4=len(eval_wavs[trg][:5]), tf_cudnn=RECIPE_VOC_EPOCHS * voc_steps)
+    for st in RECIPE_STAGES:
+        want[st]["K1"] += 2 * r[st]["captures"]
     launches_ok = want_k2 > 0 and all(r[st][k] == v for st, w in want.items()
                                       for k, v in w.items())
     ok &= launches_ok
@@ -2546,18 +2576,20 @@ def phase_tools(dev, tmp: str):
     exp_path = os.path.join(work, "exp", exp.name(), "model.json")
     exp = load_config(exp_path)
     vexp = os.path.join(work, "exp", f"vocoder_SPKB_hu{RECIPE_VOC_HU}")
-    before = kernel_launches()
+    before, captures = kernel_launches(), CAPTURES[0]
     res, sec = timed_main(vocode_converted, [
         "--work", work, "--wav-root", wav_root, "--config", exp_path, "--vocoder-exp", vexp,
         "--hidden-units", str(RECIPE_VOC_HU), "--n-train", str(RECIPE_N_TRAIN),
         "--out", os.path.join(out, "vocode_converted.json")])
-    n = launches_since(before)
+    n, captures = launches_since(before), CAPTURES[0] - captures
     m = res["metrics"]
-    check("vocode_converted", n == {"K1": 2 * res["n_eval"], "K2": 0, "K3": 0, "K4": res["n_eval"]}
+    want = {"K1": 2 * (res["n_eval"] + captures), "K2": 0, "K3": 0, "K4": res["n_eval"]}
+    check("vocode_converted", n == want
           and all(np.isfinite(m[k]) for k in ("mcd_cv_voc", "mcd_cv_world")),
           f"{res['n_eval']} pair(s): MCD neural {m['mcd_cv_voc']:.2f} dB, WORLD "
           f"{m['mcd_cv_world']:.2f} dB, F0 rel err {m['f0_rel_err_median']:.3f}, U/V "
-          f"{m['uv_agree']:.3f}; launches {n} (predicted K1 2, K4 1 a pair); {sec:.1f} s")
+          f"{m['uv_agree']:.3f}; launches {n} (predicted K1 2, K4 1 a pair, K1 2 a graph "
+          f"capture: {want}); {sec:.1f} s")
     before = kernel_launches()
     res, sec = timed_main(train_eval_vocoder, [
         "--work", work, "--wav-root", wav_root, "--speaker", "SPKB", "--epochs", "1",
@@ -2593,18 +2625,19 @@ def phase_tools(dev, tmp: str):
     pairs = TOOLS_FUSION_REPS + 1                       # one warm-up pair a path
     fusion_argv = [ckpt, exp_path, "--frames", str(TOOLS_FUSION_T), "--reps",
                    str(TOOLS_FUSION_REPS)]
-    before = kernel_launches()
+    before, captures = kernel_launches(), CAPTURES[0]
     res, sec = timed_main(bench_decode_fusion, fusion_argv + [
         "--out", os.path.join(out, "decode_fusion.json")])
-    n = launches_since(before)
-    want = {"K1": (2 + 5) * pairs, "K2": 0, "K3": 0, "K4": 0}
+    n, captures = launches_since(before), CAPTURES[0] - captures
+    want = {"K1": (2 + 5) * pairs + 2 * captures, "K2": 0, "K3": 0, "K4": 0}
     check("decode_fusion", n == want and (res["k1_launches_fused"], res["k1_launches_sequential"])
           == (2, 5) and all(np.isfinite(res[k]) and res[k] > 0
                             for k in ("fused_ms", "sequential_ms")),
           f"T={res['frames']}, {TOOLS_FUSION_REPS} pairs a path: fused {res['fused_ms']} ms, "
           f"sequential {res['sequential_ms']} ms a pair (speedup {res['speedup']}); K1 a pair "
           f"{res['k1_launches_fused']} / {res['k1_launches_sequential']} (predicted 2 / 5); "
-          f"launches {n} (predicted K1 {want['K1']}); {sec:.1f} s")
+          f"launches {n} (predicted K1 {want['K1']}, {captures} graph capture(s)); "
+          f"{sec:.1f} s")
 
     # ---- stage 6's wall time, prefetch on and off, through the recipe's CLI ----
     res, sec = timed_main(bench_stage6_wall, [
@@ -2840,6 +2873,7 @@ def main() -> int:
     import cyclevae_tpu_torch  # noqa: F401  (fails outside the repository)
 
     adopt_orphans()
+    count_captures()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)

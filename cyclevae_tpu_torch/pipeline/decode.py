@@ -39,7 +39,7 @@ from ..models.gru_vae import (compose_conv, gru_rnn_apply, sampling_vae_batch,
 from ..ops import _build, cuda_gru
 from ..utils.config import ExperimentConfig
 from ..utils.device import resolve_device
-from ..utils.profiling import fetch, span
+from ..utils.profiling import count, fetch, span
 from ..utils.store import read_store, write_store
 from ..utils.wavio import low_cut_filter, low_pass_filter, read_wav, write_wav
 from ..vi.train import CycleVAEConfig, CycleVAEParams, params_to
@@ -107,8 +107,8 @@ class Codec:
         with torch.inference_mode():
             self._enc_conv = compose_conv(self.params.encoder, cfg.enc_cfg)
             self._dec_conv = compose_conv(self.params.decoder, cfg.dec_cfg)
-        # device_decode_pair(..., on_device=True)'s device phases, one a
-        # padded length (captured as CUDA graphs on a CUDA codec)
+        # device_decode_pair's device phases, one a padded length (captured
+        # as CUDA graphs on a CUDA codec)
         self._pair_phases: Dict[int, _PairPhase] = {}
 
     # ---- device work: plain functions on tensors ----
@@ -228,14 +228,19 @@ class Codec:
 
     @torch.inference_mode()
     def convert_pair(self, generator: Optional[torch.Generator], src_feat: np.ndarray,
-                     trg_feat: np.ndarray, eps=None) -> Tuple[torch.Tensor, ...]:
-        """``device_decode_pair``'s device phase with its outputs left on the
-        device: (lat_src, lat_trg, cvmcep, cvmcep_src, cvmcep_trg), float32
-        tensors, the values of ``encode_mean`` then ``decode_batch``, with
-        no wait on the device.  On a CUDA codec the phase of each padded
-        length is captured as a CUDA graph at its first request, and the
-        host then queues three copies, the draws and one replay, where the
-        two calls queue ~250 operations and wait twice."""
+                     trg_feat: np.ndarray, eps=None, on_device: bool = False) -> tuple:
+        """``device_decode_pair``'s device phase: (lat_src, lat_trg, cvmcep,
+        cvmcep_src, cvmcep_trg), the values of ``encode_mean`` then
+        ``decode_batch``.  On a CUDA codec the phase of each padded length
+        is captured as a CUDA graph at its first request, and the host then
+        queues three copies, the draws and one replay, where the two calls
+        queue ~250 operations and wait three times.
+
+        ``on_device``: float32 tensors left on the device, with no wait on
+        it.  Else the latents as float32 and the decodes as float64 arrays,
+        brought to the host in one blocking copy of the graph's own outputs,
+        which the next replay writes over: callers on several threads hold
+        ``lock`` until the call returns."""
         cfg = self.cfg
         with span("codec.convert_pair"):
             with span("codec.pack"):
@@ -249,8 +254,13 @@ class Codec:
             phase = self._pair_phases.get(Tp)
             if phase is None:
                 phase = self._pair_phases[Tp] = _PairPhase(self, Tp)
-            lat, out = phase.run(self, generator, stack, codes, eps)
-        return lat[0, :T], lat[1, :Tt], out[0, :T], out[1, :T], out[2, :Tt]
+            flat = phase.run(self, generator, stack, codes, eps)
+        if on_device:
+            lat, out = phase.split(flat if phase.graph is None else flat.clone())
+            return lat[0, :T], lat[1, :Tt], out[0, :T], out[1, :T], out[2, :Tt]
+        lat, out = phase.split(fetch(flat).numpy())
+        return (lat[0, :T], lat[1, :Tt],
+                *(o.astype(np.float64) for o in (out[0, :T], out[1, :T], out[2, :Tt])))
 
     @torch.inference_mode()
     def decode_batch(self, pairs: List[Tuple[np.ndarray, np.ndarray]]
@@ -280,10 +290,15 @@ class _PairPhase:
     CUDA codec the phase is captured as one CUDA graph and replayed on the
     current stream, the buffers written there first and the outputs copied
     out after (the next replay writes over the graph's), its K1 launches
-    counted at each replay; on the CPU it runs directly."""
+    counted at each replay (and the run off the capture's, which launched
+    them too); on the CPU it runs directly.  Its output is one flat buffer
+    of the latents then the decodes, so that the host path brings both to
+    the host in one copy; each replay is counted under
+    ``codec.pair_replays``, which a direct run leaves at 0."""
 
     def __init__(self, codec: "Codec", Tp: int):
         cfg, dev = codec.cfg, codec.device
+        self.shapes = ((2, Tp, 2 * cfg.lat_dim), (3, Tp, cfg.out_dim))
         self.x = torch.zeros((2, Tp, cfg.in_dim), device=dev)
         self.eps = torch.zeros((codec.n_smpl_dec, 2, Tp, cfg.lat_dim), device=dev)
         self.code = torch.zeros((3, Tp, cfg.n_spk), device=dev)
@@ -300,22 +315,29 @@ class _PairPhase:
         before = cuda_gru.cuda_gru_ar.launches
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
-            self.lat, self.out = self._body(codec)
+            self.flat = self._body(codec)
         self.launches = cuda_gru.cuda_gru_ar.launches - before
         cuda_gru.cuda_gru_ar.launches = before
 
-    def _body(self, codec: "Codec") -> Tuple[torch.Tensor, torch.Tensor]:
+    def _body(self, codec: "Codec") -> torch.Tensor:
         lat = codec._encode_b(self.x)
         z = codec._latent_mean(None, lat, self.eps)
         z = torch.where((self.code != 0).any(-1, keepdim=True),
                         torch.stack([z[0], z[0], z[1]]), 0.0)
-        return lat, codec._decode_b(torch.cat([self.code, z], dim=-1))
+        out = codec._decode_b(torch.cat([self.code, z], dim=-1))
+        return torch.cat([lat.reshape(-1), out.reshape(-1)])
+
+    def split(self, flat):
+        """The latents (2, Tp, 2 lat) and the decodes (3, Tp, out) of the
+        flat output ``flat``, a tensor or its host array, as views of it."""
+        n = int(np.prod(self.shapes[0]))
+        return flat[:n].reshape(self.shapes[0]), flat[n:].reshape(self.shapes[1])
 
     def run(self, codec: "Codec", generator: Optional[torch.Generator], stack: np.ndarray,
-            codes: np.ndarray, eps: Optional[torch.Tensor]
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The phase on one request's inputs, queued without a wait: the
-        host arrays' copies are staged before ``copy_`` returns."""
+            codes: np.ndarray, eps: Optional[torch.Tensor]) -> torch.Tensor:
+        """The phase on one request's inputs, queued without a wait (the
+        host arrays' copies are staged before ``copy_`` returns): its flat
+        output, on a CUDA codec the graph's own."""
         self.x.copy_(torch.from_numpy(stack), non_blocking=True)
         self.code.copy_(torch.from_numpy(codes), non_blocking=True)
         if eps is None:
@@ -323,11 +345,13 @@ class _PairPhase:
         else:
             self.eps.copy_(eps)
         if self.graph is None:
+            count("codec.pair_replays", 0)          # run directly: no replay
             return self._body(codec)
         self.graph.replay()
+        count("codec.pair_replays")
         for _ in range(self.launches):
             _build.count_launch(cuda_gru.cuda_gru_ar)
-        return self.lat.clone(), self.out.clone()
+        return self.flat
 
 
 def _speaker_codes(T: int, n_spk: int, idx: int) -> np.ndarray:
@@ -408,36 +432,26 @@ def analyze_pair(exp: ExperimentConfig, wav_file: str, wav_trg_file: str,
 def device_decode_pair(codec: Codec, generator: Optional[torch.Generator],
                        src_feat: np.ndarray, trg_feat: np.ndarray, eps=None,
                        on_device: bool = False):
-    """Device phase of one conversion request: ONE fused batched
-    encode+posterior-mean call for both utterances and ONE fused
-    3-direction batched decode, under the codec's lock.  ``generator``
-    defaults to one seeded with 0 on the codec's device; ``eps``
-    (n_smpl_dec, 2, max(T_src, T_trg), lat) replaces its draws.  Returns
-    (lat_src, lat_trg, cvmcep, cvmcep_src, cvmcep_trg).
+    """Device phase of one conversion request, under the codec's lock:
+    ONE batched encode+posterior-mean of both utterances and ONE batched
+    3-direction decode (``Codec.convert_pair``: on a CUDA codec one CUDA
+    graph replay), the values of ``Codec.encode_mean`` then
+    ``Codec.decode_batch``.  ``generator`` defaults to one seeded with 0
+    on the codec's device; ``eps`` (n_smpl_dec, 2, max(T_src, T_trg), lat)
+    replaces its draws.  Returns (lat_src, lat_trg, cvmcep, cvmcep_src,
+    cvmcep_trg): float32 latents and float64 decodes, brought to the host
+    in one blocking copy.
 
     ``on_device``: the five are float32 tensors left on the codec's device,
-    the same values, and the call never waits on the device: the latents
-    stay there between the encode and the decode, so the host can queue
-    what follows (``gv_postfilter``, ``converted_conditioning`` and a
-    Parallel WaveGAN rendering take them there) while K1 runs; on a CUDA
-    codec the device phase is one CUDA graph replay (``Codec.convert_pair``).
-    The request then does not end in a copy to the host: callers on several
+    the same values, and the call never waits on the device, so the host
+    can queue what follows (``gv_postfilter``, ``converted_conditioning``
+    and a Parallel WaveGAN rendering take them there) while K1 runs.  The
+    request then does not end in a copy to the host: callers on several
     threads order their streams themselves."""
-    cfg = codec.cfg
     if generator is None and eps is None:
         generator = torch.Generator(device=codec.device).manual_seed(0)
     with span("decode.device_decode_pair"), codec.lock:
-        if on_device:
-            return codec.convert_pair(generator, src_feat, trg_feat, eps)
-        (lat_src, lat_trg), (z_src, z_trg) = codec.encode_mean(
-            generator, [src_feat, trg_feat], eps)
-        T, Tt = len(z_src), len(z_trg)
-        cvmcep, cvmcep_src, cvmcep_trg = codec.decode_batch([
-            (_speaker_codes(T, cfg.n_spk, 1), z_src),
-            (_speaker_codes(T, cfg.n_spk, 0), z_src),
-            (_speaker_codes(Tt, cfg.n_spk, 1), z_trg),
-        ])
-    return lat_src, lat_trg, cvmcep, cvmcep_src, cvmcep_trg
+        return codec.convert_pair(generator, src_feat, trg_feat, eps, on_device)
 
 
 def decode_pair(codec: Codec, exp: ExperimentConfig,

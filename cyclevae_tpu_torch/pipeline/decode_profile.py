@@ -4,13 +4,14 @@
 
 Builds the flagship ``Codec`` (``use_pallas``, random weights and smooth
 synthetic features from a seed), warms it up on two requests (both 560-frame
-bucket counts), then runs one request through ``device_decode_pair`` once
-timed and once under ``torch.profiler``, and prints one JSON line: the
-request's wall time (host clock; it ends in host copies of its outputs), the
-device's busy time in the profiled request (the sum of its kernels' and
-copies' times: one stream, so they do not overlap), the idle share of the
-unprofiled wall time, K1's time and launches apart from the rest, and the
-kernels taking the most device time.
+bucket counts: each captures its length's CUDA graph), then runs one
+request through ``device_decode_pair`` once timed and once under
+``torch.profiler``, and prints one JSON line: the request's wall time
+(host clock; it ends in host copies of its outputs), the device's busy
+time in the profiled request (the sum of its kernels' and copies' times:
+one stream, so they do not overlap), the idle share of the unprofiled wall
+time, K1's time and launches apart from the rest, and the kernels taking
+the most device time.
 """
 
 from __future__ import annotations

@@ -137,10 +137,12 @@ def test_a_request_kept_on_the_device_matches_the_host_path(cuda_device):
     the rendering (the layer kernel) kept on the device: at the capture,
     and at a replay queued behind ~50 ms of other work, so that every
     upload is still queued when its host buffer is dropped and written
-    over.  Each gives the host path's values, the conversion bitwise, with
-    one wait on the device, the waveform's, and two K1 launches counted a
-    replay."""
-    from cyclevae_tpu_torch.pipeline.decode import Codec, device_decode_pair, gv_postfilter
+    over.  Each gives the host path's values (its conversion as
+    ``encode_mean`` then ``decode_batch``, which capture nothing), the
+    conversion bitwise, with one wait on the device, the waveform's, and
+    two K1 launches counted a replay."""
+    from cyclevae_tpu_torch.pipeline.decode import (Codec, _speaker_codes, device_decode_pair,
+                                                    gv_postfilter)
     from cyclevae_tpu_torch.pipeline.vocoder_stage import (converted_conditioning,
                                                            synthesize_vocoder)
     from cyclevae_tpu_torch.vi.train import CycleVAEConfig, init_cyclevae
@@ -158,7 +160,13 @@ def test_a_request_kept_on_the_device_matches_the_host_path(cuda_device):
 
     def chain(on_device):
         g = torch.Generator(device=dev).manual_seed(5)
-        out = device_decode_pair(codec, g, *feats, on_device=on_device)
+        if on_device:
+            out = device_decode_pair(codec, g, *feats, on_device=True)
+        else:
+            (ls, lt), (zs, zt) = codec.encode_mean(g, feats)
+            out = (ls, lt, *codec.decode_batch([(_speaker_codes(390, cfg.n_spk, 1), zs),
+                                                (_speaker_codes(390, cfg.n_spk, 0), zs),
+                                                (_speaker_codes(130, cfg.n_spk, 1), zt)]))
         cv = gv_postfilter(out[2], gv_data, gv_model)
         c = converted_conditioning(feats[0], cv, f0, 11.61)
         # host buffers of the uploads' sizes, made and written over while

@@ -170,9 +170,9 @@ def test_launch_counts_exact_under_threads():
 
 def test_concurrent_requests_reach_the_device_one_at_a_time():
     """Stage 6 decodes pairs on a thread pool: the device phase of one
-    request (encode + posterior mean, then the batched decode) never
-    overlaps another's, and each request's outputs are those of a serial
-    run with the same generator."""
+    request (``Codec.convert_pair``: the encode, posterior mean and batched
+    decode, then the copy to the host) never overlaps another's, and each
+    request's outputs are those of a serial run with the same generator."""
     cfg = CycleVAEConfig(hidden_units=8, n_cyc=1)
     codec = Codec(init_cyclevae(torch.Generator().manual_seed(0), cfg, device="cpu"), cfg,
                   n_smpl_dec=2, bucket=8, device="cpu")
@@ -195,8 +195,7 @@ def test_concurrent_requests_reach_the_device_one_at_a_time():
                     active[0] -= 1
         return call
 
-    codec.encode_mean = watched(codec.encode_mean)
-    codec.decode_batch = watched(codec.decode_batch)
+    codec.convert_pair = watched(codec.convert_pair)
     barrier = threading.Barrier(len(pairs))
     got = [None] * len(pairs)
 
